@@ -1,0 +1,68 @@
+"""Carrying state between the JAX package's containers and the port's.
+
+The JAX side hands its containers over as numpy arrays (its tests do
+`jax.tree_util.tree_map(np.array, x)`), so this module never sees jax.
+`from_numpy_tree` rebuilds the port's NamedTuples field by field, keeps each
+array's dtype, keeps `None` for the optional fields that are absent, and
+ALWAYS COPIES: `torch.from_numpy` alone would alias the source buffer, and a
+later in-place update on one side would silently change the other.
+`to_numpy_tree` goes back, copying as well.
+"""
+
+from __future__ import annotations
+
+import numpy as np
+import torch
+
+from anticipated_vins_mono_torch.ops.preintegration import Preintegrated
+from anticipated_vins_mono_torch.ops.window import (
+    PriorFactor, WindowMeasurements, WindowState)
+from anticipated_vins_mono_torch.utils.tree import tree_map
+
+
+def _to_tensor(x, device) -> torch.Tensor:
+    arr = np.array(x)            # always a fresh copy, dtype kept
+    return torch.from_numpy(arr).to(device)
+
+
+def _rebuild(cls, fields, device):
+    """`cls(*fields)` with every array leaf copied into a tensor; nested
+    containers are rebuilt by their own class."""
+    nested = {"pre": Preintegrated, "prior": PriorFactor, "lin": WindowState}
+    vals = []
+    for name, val in zip(cls._fields, tuple(fields)):
+        if val is None:
+            vals.append(None)
+        elif name in nested:
+            vals.append(_rebuild(nested[name], val, device))
+        else:
+            vals.append(_to_tensor(val, device))
+    return cls(*vals)
+
+
+def window_state_from_numpy(state, device="cuda") -> WindowState:
+    """A `WindowState` given as a (named) tuple of numpy arrays → the port's."""
+    return _rebuild(WindowState, state, torch.device(device))
+
+
+def window_measurements_from_numpy(meas, device="cuda") -> WindowMeasurements:
+    """A `WindowMeasurements` given as nested tuples of numpy arrays
+    (including its `PriorFactor` and stacked `Preintegrated`) → the port's."""
+    return _rebuild(WindowMeasurements, meas, torch.device(device))
+
+
+def from_numpy_tree(tree, device="cuda"):
+    """Any tree of numpy arrays (tuples, lists, dicts, `None`) → the same
+    tree of tensors on `device`, copied, dtype kept. Used for the selector's
+    flat argument lists; the window containers have their own functions
+    above, which also restore the port's NamedTuple classes."""
+    device = torch.device(device)
+    return tree_map(lambda x: _to_tensor(x, device), tree)
+
+
+def to_numpy_tree(tree):
+    """A tree of tensors → the same tree of numpy arrays (copied to the
+    host); `None` stays `None`, a leaf that is already numpy is copied."""
+    return tree_map(
+        lambda x: x.detach().cpu().numpy().copy() if torch.is_tensor(x)
+        else np.array(x), tree)

@@ -1,0 +1,271 @@
+"""Synthetic VIO scenario generation — ground truth + measurements.
+
+Counterpart of the window-problem half of
+`anticipated_vins_mono_tpu/utils/synthetic.py`: an analytic smooth
+trajectory, simulated 200 Hz IMU (specific force + body rates, optional
+noise/bias), and landmark observations with FOV masks, packed into the
+static-shape `WindowMeasurements`. All randomness comes from
+`numpy.random.default_rng(seed)`, drawn in the same order as the JAX
+package draws it, so the same seed gives the same problem.
+"""
+
+from __future__ import annotations
+
+from typing import NamedTuple, Optional
+
+import numpy as np
+import torch
+
+from anticipated_vins_mono_torch.ops import factors, lie
+from anticipated_vins_mono_torch.ops.preintegration import ImuNoise, preintegrate
+from anticipated_vins_mono_torch.ops.window import (
+    PriorFactor, WindowConfig, WindowMeasurements, WindowState)
+from anticipated_vins_mono_torch.utils.tree import tree_map, tree_to
+
+G_W = np.array([0.0, 0.0, -factors.GRAVITY])  # world gravity acceleration
+
+
+def _t64(x) -> torch.Tensor:
+    return torch.as_tensor(np.asarray(x, dtype=np.float64))
+
+
+def _quat_to_rot_np(q: np.ndarray) -> np.ndarray:
+    return lie.quat_to_rot(_t64(q)).numpy()
+
+
+class Trajectory(NamedTuple):
+    """Dense ground-truth trajectory sampled at IMU rate."""
+
+    t: np.ndarray      # [N]
+    p: np.ndarray      # [N,3]
+    q: np.ndarray      # [N,4] wxyz
+    v: np.ndarray      # [N,3]
+    acc_body: np.ndarray  # [N,3] accelerometer (specific force)
+    gyr_body: np.ndarray  # [N,3] gyro
+
+
+def analytic_trajectory(duration: float, imu_rate: float = 200.0,
+                        scale: float = 1.0) -> Trajectory:
+    """Smooth sinusoidal trajectory with analytic derivatives. Position is
+    analytic (exact v, a); orientation integrates an analytic body rate ω(t)
+    with fine exact-exponential steps."""
+    dt = 1.0 / imu_rate
+    n = int(round(duration * imu_rate)) + 1
+    t = np.arange(n) * dt
+
+    w1, w2, w3 = 0.7, 0.5, 0.9
+    A = np.array([1.2, 0.8, 0.4]) * scale
+
+    p = np.stack([A[0] * np.sin(w1 * t), A[1] * np.cos(w2 * t),
+                  A[2] * np.sin(w3 * t)], axis=-1)
+    v = np.stack([A[0] * w1 * np.cos(w1 * t), -A[1] * w2 * np.sin(w2 * t),
+                  A[2] * w3 * np.cos(w3 * t)], axis=-1)
+    a = np.stack([-A[0] * w1 * w1 * np.sin(w1 * t),
+                  -A[1] * w2 * w2 * np.cos(w2 * t),
+                  -A[2] * w3 * w3 * np.sin(w3 * t)], axis=-1)
+
+    def omega(tt):
+        return np.array([0.25 * np.sin(0.9 * tt),
+                         0.2 * np.cos(0.7 * tt),
+                         0.3 * np.sin(0.5 * tt) + 0.1])
+
+    q = np.zeros((n, 4))
+    q[0] = [1, 0, 0, 0]
+    sub = 4  # fine substeps per IMU sample for GT orientation accuracy
+    for k in range(1, n):
+        qq = _t64(q[k - 1])
+        for s in range(sub):
+            tm = t[k - 1] + (s + 0.5) * dt / sub
+            qq = lie.quat_mul(qq, lie.exp_so3_quat(_t64(omega(tm) * dt / sub)))
+        q[k] = lie.quat_normalize(qq).numpy()
+
+    gyr = np.stack([omega(tt) for tt in t])
+    R = _quat_to_rot_np(q)
+    acc_body = np.einsum("nij,nj->ni", R.transpose(0, 2, 1), a - G_W)
+    return Trajectory(t, p, q, v, acc_body, gyr)
+
+
+def add_imu_noise(traj: Trajectory, noise: ImuNoise, rng: np.random.Generator,
+                  ba: np.ndarray, bg: np.ndarray, imu_rate: float = 200.0
+                  ) -> Trajectory:
+    """Discrete-time noise: σ_d = σ_c·√rate, plus constant biases."""
+    sq = np.sqrt(imu_rate)
+    acc = traj.acc_body + ba + rng.normal(size=traj.acc_body.shape) * noise.acc_n * sq
+    gyr = traj.gyr_body + bg + rng.normal(size=traj.gyr_body.shape) * noise.gyr_n * sq
+    return traj._replace(acc_body=acc, gyr_body=gyr)
+
+
+def sample_landmarks(traj: Trajectory, n: int, rng: np.random.Generator,
+                     depth_range=(3.0, 12.0)) -> np.ndarray:
+    """World landmarks scattered in front of the trajectory's viewing cone."""
+    idx = rng.integers(0, len(traj.t), size=n)
+    R = _quat_to_rot_np(traj.q[idx])
+    depth = rng.uniform(*depth_range, size=n)
+    dirs = np.stack([rng.uniform(-0.45, 0.45, n),
+                     rng.uniform(-0.35, 0.35, n),
+                     np.ones(n)], axis=-1)
+    dirs /= np.linalg.norm(dirs, axis=-1, keepdims=True)
+    # camera looks along body +z here (identity-ish extrinsic assumed)
+    return traj.p[idx] + np.einsum("nij,nj->ni", R, dirs * depth[:, None])
+
+
+class WindowProblem(NamedTuple):
+    gt: WindowState
+    init: WindowState
+    meas: WindowMeasurements
+    frame_times: np.ndarray
+
+
+def make_window_problem(cfg: WindowConfig,
+                        seed: int = 0,
+                        frame_hz: float = 10.0,
+                        imu_rate: float = 200.0,
+                        pixel_noise: float = 0.0,
+                        imu_noise: Optional[ImuNoise] = None,
+                        bias_scale: float = 0.0,
+                        perturb: float = 0.0,
+                        dtype=torch.float64,
+                        tic: Optional[np.ndarray] = None,
+                        qic: Optional[np.ndarray] = None,
+                        device="cuda") -> WindowProblem:
+    """Build one full sliding-window problem with GT and a perturbed init.
+
+    - `pixel_noise`: std of observation noise on the normalized plane,
+      in *pixels* (divided by FOCAL_LENGTH internally).
+    - `perturb`: magnitude of the initial-state perturbation.
+    - `device`: where the returned tensors live. The problem is generated
+      with numpy on the host and moved there; a CUDA device that is not
+      present raises.
+    """
+    device = torch.device(device)
+    rng = np.random.default_rng(seed)
+    nf = cfg.nf
+    duration = cfg.window / frame_hz
+    traj = analytic_trajectory(duration + 0.01, imu_rate)
+    noise = imu_noise or ImuNoise()
+
+    ba_true = rng.normal(size=3) * 0.05 * bias_scale
+    bg_true = rng.normal(size=3) * 0.01 * bias_scale
+    traj_meas = add_imu_noise(traj, noise if imu_noise else
+                              ImuNoise(0, 0, 0, 0), rng, ba_true, bg_true,
+                              imu_rate)
+
+    stride = int(round(imu_rate / frame_hz))
+    fidx = np.arange(nf) * stride
+    frame_times = traj.t[fidx]
+
+    if tic is None:
+        tic = np.array([0.05, 0.02, 0.0])
+    if qic is None:
+        qic = np.array([1.0, 0, 0, 0])
+
+    as_t = lambda x: torch.as_tensor(np.asarray(x)).to(dtype)
+
+    # --- preintegrate all adjacent pairs at once (equal sample counts)
+    starts = fidx[:-1]
+    samp = starts[:, None] + 1 + np.arange(stride)[None, :]      # [W,stride]
+    pre_stack = preintegrate(
+        as_t(np.full((cfg.window, stride), 1.0 / imu_rate)),
+        as_t(traj_meas.acc_body[samp]), as_t(traj_meas.gyr_body[samp]),
+        as_t(traj_meas.acc_body[starts]), as_t(traj_meas.gyr_body[starts]),
+        as_t(np.zeros((cfg.window, 3))), as_t(np.zeros((cfg.window, 3))),
+        noise)
+
+    # --- landmarks + observations
+    F = cfg.max_feats
+    lms = sample_landmarks(traj, F, rng)
+    R_bw = _quat_to_rot_np(traj.q[fidx])  # [NF,3,3]
+    R_ic = _quat_to_rot_np(qic)
+    pts = np.zeros((F, nf, 3))
+    mask = np.zeros((F, nf))
+    for j in range(nf):
+        P_b = np.einsum("ij,nj->ni", R_bw[j].T, lms - traj.p[fidx[j]])
+        P_c = np.einsum("ij,nj->ni", R_ic.T, P_b - tic)
+        z = P_c[:, 2]
+        ok = (z > 0.5) & (np.abs(P_c[:, 0] / np.maximum(z, 1e-6)) < 0.55) & \
+             (np.abs(P_c[:, 1] / np.maximum(z, 1e-6)) < 0.42)
+        ptsj = P_c / np.maximum(z[:, None], 1e-6)
+        if pixel_noise > 0:
+            ptsj[:, :2] += rng.normal(size=(F, 2)) * pixel_noise / factors.FOCAL_LENGTH
+        ptsj[:, 2] = 1.0
+        pts[:, j] = ptsj
+        mask[:, j] = ok
+
+    # landmarks need >= 2 observations; anchor = first observed frame
+    nobs = mask.sum(1)
+    feat_valid = (nobs >= 2).astype(float)
+    anchor = np.argmax(mask > 0, axis=1).astype(np.int32)
+
+    # GT inverse depth in anchor camera
+    inv_depth = np.ones(F)
+    for l in range(F):
+        a = anchor[l]
+        P_b = R_bw[a].T @ (lms[l] - traj.p[fidx[a]])
+        P_c = R_ic.T @ (P_b - tic)
+        inv_depth[l] = 1.0 / max(P_c[2], 0.1)
+
+    gt = WindowState(
+        p=as_t(traj.p[fidx]), q=as_t(traj.q[fidx]), v=as_t(traj.v[fidx]),
+        ba=as_t(ba_true).repeat(nf, 1), bg=as_t(bg_true).repeat(nf, 1),
+        tic=as_t(tic), qic=as_t(qic),
+        td=torch.zeros((), dtype=dtype), inv_depth=as_t(inv_depth))
+
+    # --- perturbed initial guess (first pose kept = gauge)
+    def pert(shape, s):
+        out = rng.normal(size=shape) * s
+        out[0] = 0
+        return out
+
+    dth = pert((nf, 3), perturb * 0.02)
+    q_init = lie.quat_mul(gt.q.to(torch.float64),
+                          lie.exp_so3_quat(_t64(dth))).numpy()
+    init = WindowState(
+        p=as_t(gt.p.numpy() + pert((nf, 3), perturb * 0.05)),
+        q=as_t(q_init),
+        v=as_t(gt.v.numpy() + pert((nf, 3), perturb * 0.05)),
+        ba=torch.zeros((nf, 3), dtype=dtype),
+        bg=torch.zeros((nf, 3), dtype=dtype),
+        tic=gt.tic.clone(), qic=gt.qic.clone(), td=gt.td.clone(),
+        inv_depth=as_t(inv_depth * (1 + rng.normal(size=F) * 0.05 * perturb)))
+
+    meas = WindowMeasurements(
+        pre=pre_stack,
+        pre_valid=torch.ones(cfg.window, dtype=dtype),
+        pts=as_t(pts),
+        vel=torch.zeros((F, nf, 2), dtype=dtype),
+        mask=as_t(mask),
+        anchor=torch.as_tensor(anchor),
+        feat_valid=as_t(feat_valid),
+        prior=PriorFactor.empty(cfg, dtype))
+    return WindowProblem(tree_to(gt, device), tree_to(init, device),
+                         tree_to(meas, device), frame_times)
+
+
+def batched(tree, B: int):
+    """Every leaf of `tree` repeated B times along a new leading dimension:
+    one scenario → a `[B, ...]` batch for `lm_solve`."""
+    return tree_map(lambda x: x[None].expand((B,) + x.shape).contiguous(), tree)
+
+
+def selector_inputs(prob: WindowProblem, cfg: WindowConfig, probs_seed: int = 1):
+    """The tensor arguments of `feature_selector.device_select` for the newest
+    frame of a window problem, with no tracker in front: its state, one IMU
+    sample, identity extrinsics, empty used / landmark sets (depth 5.0, zero
+    masks), and as candidates the problem's own newest-frame observations
+    with tracking probabilities uniform in [0.5, 1) from `probs_seed`.
+    Returns (cand_probs [F], the 18 arguments after `dt_imu`)."""
+    F, nf1 = cfg.max_feats, cfg.nf - 1
+    init, meas = prob.init, prob.meas
+    kw = dict(dtype=init.p.dtype, device=init.p.device)
+    zeros = lambda *s: torch.zeros(*s, **kw)
+    probs = torch.from_numpy(
+        np.random.default_rng(probs_seed).uniform(0.5, 1.0, F)).to(**kw)
+    args = (init.p[nf1], init.q[nf1], init.v[nf1],
+            torch.tensor([0.2, 0.1, 9.9], **kw),
+            torch.tensor([0.02, -0.01, 0.05], **kw),
+            init.ba[nf1], init.bg[nf1],
+            zeros(3), torch.tensor([1.0, 0, 0, 0], **kw),
+            meas.pts[:, nf1], probs, meas.mask[:, nf1] * meas.feat_valid,
+            zeros(F, 3), torch.full((F,), 5.0, **kw), zeros(F),
+            zeros(F, 2), torch.full((F,), 5.0, **kw), zeros(F))
+    return probs, args

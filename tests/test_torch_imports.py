@@ -1,0 +1,122 @@
+"""The port stands on torch alone, and its entry points do not fall back
+to the CPU on their own."""
+
+import ast
+import pathlib
+
+import pytest
+import torch
+
+torch.set_num_threads(1)
+
+ROOT = pathlib.Path(__file__).resolve().parent.parent
+PORT_FILES = sorted((ROOT / "anticipated_vins_mono_torch").rglob("*.py")) + \
+    [ROOT / "chip_smoke.py"]
+FORBIDDEN_TEXT = ("import jax", "from jax", "import_module", "__import__")
+FORBIDDEN_MODULES = ("jax", "jaxlib", "anticipated_vins_mono_tpu")
+
+
+def _imported_modules(text):
+    """Every module named by an import statement anywhere in the source."""
+    mods = []
+    for node in ast.walk(ast.parse(text)):
+        if isinstance(node, ast.Import):
+            mods += [a.name for a in node.names]
+        elif isinstance(node, ast.ImportFrom):
+            mods.append(node.module or "")
+    return mods
+
+
+@pytest.mark.parametrize("path", PORT_FILES,
+                         ids=[str(p.relative_to(ROOT)) for p in PORT_FILES])
+def test_no_jax_and_nothing_of_the_jax_package(path):
+    """No import statement names jax or the JAX package (docstrings may point
+    at the JAX counterpart of a function by its path), and nothing imports by
+    a computed name."""
+    text = path.read_text()
+    for word in FORBIDDEN_TEXT:
+        assert word not in text, f"{path.name} contains {word!r}"
+    for mod in _imported_modules(text):
+        assert mod.split(".")[0] not in FORBIDDEN_MODULES, \
+            f"{path.name} imports {mod}"
+
+
+def test_port_has_the_expected_modules_and_kernel_sources():
+    names = {str(p.relative_to(ROOT / "anticipated_vins_mono_torch"))
+             for p in PORT_FILES[:-1]}
+    for need in ("ops/lie.py", "ops/preintegration.py", "ops/factors.py",
+                 "ops/window.py", "ops/hopper_kernels.py",
+                 "models/anticipation.py", "models/feature_selector.py",
+                 "utils/synthetic.py", "utils/convert.py"):
+        assert need in names
+    from anticipated_vins_mono_torch.ops import hopper_kernels as hk
+    for src in hk.KERNEL_SOURCES.values():
+        text = (hk.CSRC_DIR / src).read_text()
+        assert "__global__" in text and "cudaGetLastError" in text
+        assert "cublas" not in text.lower() and "cusolver" not in text.lower()
+
+
+def test_importing_the_port_builds_nothing():
+    import anticipated_vins_mono_torch  # noqa: F401
+    from anticipated_vins_mono_torch.ops import hopper_kernels as hk
+    assert hk._libs == {} or torch.cuda.is_available()
+
+
+def _no_card():
+    if torch.cuda.is_available():
+        pytest.skip("a CUDA device is present: the default device exists")
+
+
+def test_make_window_problem_raises_without_card():
+    _no_card()
+    from anticipated_vins_mono_torch.ops.window import WindowConfig
+    from anticipated_vins_mono_torch.utils.synthetic import make_window_problem
+    with pytest.raises((RuntimeError, AssertionError)):
+        make_window_problem(WindowConfig(window=2, max_feats=4))
+
+
+def test_lm_solve_raises_without_card():
+    _no_card()
+    from anticipated_vins_mono_torch.ops.window import WindowConfig, lm_solve
+    from anticipated_vins_mono_torch.utils.synthetic import make_window_problem
+    cfg = WindowConfig(window=2, max_feats=4, iters=1)
+    prob = make_window_problem(cfg, device="cpu")
+    with pytest.raises((RuntimeError, AssertionError)):
+        lm_solve(prob.init, prob.meas, cfg)
+
+
+def test_select_informative_raises_without_card():
+    _no_card()
+    from anticipated_vins_mono_torch.models.anticipation import \
+        select_informative
+    eye = torch.eye(18, dtype=torch.float64)
+    with pytest.raises((RuntimeError, AssertionError)):
+        select_informative(eye, torch.zeros(3, 18, 18, dtype=torch.float64),
+                           torch.ones(3, dtype=torch.float64),
+                           torch.ones(3, dtype=torch.float64), 2)
+
+
+def test_device_select_raises_without_card():
+    _no_card()
+    from anticipated_vins_mono_torch.models import anticipation as ant
+    from anticipated_vins_mono_torch.models.feature_selector import \
+        device_select
+    t = lambda *s: torch.zeros(*s, dtype=torch.float64)
+    q = torch.tensor([1.0, 0, 0, 0], dtype=torch.float64)
+    with pytest.raises((RuntimeError, AssertionError)):
+        device_select(ant.SelectorConfig(horizon=2), 1, 2, 0.005,
+                      t(3), q, t(3), t(3), t(3), t(3), t(3), t(3), q,
+                      t(4, 3), t(4), t(4), t(4, 3), t(4), t(4),
+                      t(4, 2), t(4), t(4))
+
+
+def test_chip_smoke_refuses_to_run_without_card():
+    """Without a CUDA device the script exits non-zero and prints no result
+    line."""
+    _no_card()
+    import subprocess
+    import sys
+    proc = subprocess.run([sys.executable, str(ROOT / "chip_smoke.py")],
+                          capture_output=True, text=True, timeout=120)
+    assert proc.returncode != 0
+    assert '"ok"' not in proc.stdout
