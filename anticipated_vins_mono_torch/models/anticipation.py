@@ -319,8 +319,10 @@ def select_informative(Omega: Tensor, Deltas: Tensor, probs: Tensor,
 
     Two scoring implementations of the SAME greedy:
     - "chol": logdet(Ω_acc + p_ℓ Δ_ℓ) for every candidate — one launch of
-      the batched log-det kernel per round on a CUDA device
-      (`hopper_kernels.logdet_psd`), a batched Cholesky on the CPU.
+      the batched log-det kernel per round on a CUDA device (for a single
+      float32 problem `hopper_kernels.logdet_psd_affine_batched`, which
+      forms the sum inside the kernel; else `hopper_kernels.logdet_psd` on
+      the materialised sum), a batched Cholesky on the CPU.
     - "lowrank": matrix-determinant-lemma scoring. Δ_ℓ = EᵀBig E is PSD with
       support on the 3H position coordinates, so Δ_ℓ = B_ℓ B_ℓᵀ with B_ℓ
       [D,r], r = 3H (factored once per call by a batched eigh). Each round
@@ -374,6 +376,12 @@ def select_informative(Omega: Tensor, Deltas: Tensor, probs: Tensor,
                 W = W.reshape(batch + (D, F, r)).transpose(-3, -2)
                 G = eye_r + probs[..., None, None] * (W.mT @ W)
                 return lie.logdet_psd(G)
+        elif device.type == "cuda" and dtype == torch.float32 and not batch:
+            # one problem in float32 on the card: the kernel's loader forms
+            # Ω + p·Δ itself, no [F,D,D] temporary per round
+            def score(Om):
+                return hopper_kernels.logdet_psd_affine_batched(
+                    Om, Deltas, probs)
         else:
             def score(Om):
                 cand = Om[..., None, :, :] + probs[..., None, None] * Deltas

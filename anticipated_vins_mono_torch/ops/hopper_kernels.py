@@ -3,10 +3,16 @@
 Counterpart of `anticipated_vins_mono_tpu/ops/pallas_kernels.py`:
 
 - `logdet_psd_batched` — f32 [B,N,N] → [B] log-determinants by unpivoted
-  elimination (`csrc/logdet_psd.cu`); the anticipation selector scores all
-  candidates with it every greedy round;
+  elimination (`csrc/logdet_psd.cu`); `logdet_psd_affine_batched` is the
+  same kernel with a loader that forms `Om + scale_f · Deltas_f` while it
+  fills shared memory: the anticipation selector scores all candidates with
+  it every greedy round and writes no [F,N,N] temporary;
 - `schur_solve_fused` — the damped Schur-reduced solve of one LM iteration
   for a whole scenario batch in one launch (`csrc/schur_solve_fused.cu`).
+
+Both kernels factor through one blocked in-shared-memory LDLᵀ
+(`csrc/blocked_ldl.cuh`); `blocked_ldl_plain` is that algorithm in plain
+PyTorch, in the kernel's order, for the tests.
 
 The CUDA sources are compiled with `nvcc` for `sm_90a` at first use, one
 compiler process per source started together, into `build/hopper_kernels/`
@@ -75,15 +81,18 @@ def _find_nvcc() -> str:
 
 
 def _lib_path(source: Path) -> Path:
-    digest = hashlib.sha1(source.read_bytes()
-                          + " ".join(NVCC_FLAGS).encode()).hexdigest()[:12]
+    digest = hashlib.sha1(
+        source.read_bytes()
+        + b"".join(h.read_bytes() for h in sorted(CSRC_DIR.glob("*.cuh")))
+        + " ".join(NVCC_FLAGS).encode()).hexdigest()[:12]
     return BUILD_DIR / f"lib{source.stem}_{digest}.so"
 
 
 def build_kernels() -> dict:
     """Compile every kernel source that has no up-to-date library yet (all
-    compilers started together) and load the libraries. Returns
-    {kernel name: ctypes library}. Raises if a source does not compile."""
+    compilers started together), load the libraries and let each raise its
+    kernels' dynamic shared-memory limit once. Returns {kernel name: ctypes
+    library}. Raises if a source does not compile."""
     missing = [n for n in KERNEL_SOURCES if n not in _libs]
     if not missing:
         return _libs
@@ -110,19 +119,40 @@ def build_kernels() -> dict:
         raise RuntimeError("kernel build failed\n" + "\n".join(failed))
     for name in missing:
         lib = ctypes.CDLL(str(_lib_path(CSRC_DIR / KERNEL_SOURCES[name])))
-        _declare(name, lib)
+        _raise_on(_declare(name, lib)(), f"{name}: init")
         _libs[name] = lib
     return _libs
 
 
-def _declare(name: str, lib) -> None:
+def _declare(name: str, lib):
+    """Sets the argument types of the library's functions; returns its init
+    function (shared-memory opt-in, called once after loading)."""
     ptr, i32 = ctypes.c_void_p, ctypes.c_int
     if name == "logdet_psd_batched":
-        lib.avm_logdet_psd_batched.argtypes = [ptr, ptr, i32, i32, ptr]
-        lib.avm_logdet_psd_batched.restype = i32
+        # (M, out, batch, n, stamps, stream)
+        lib.avm_logdet_psd_batched.argtypes = [ptr, ptr, i32, i32, ptr, ptr]
+        # (Om, Deltas, scale, out, batch, n, stamps, stream)
+        lib.avm_logdet_psd_affine_batched.argtypes = [
+            ptr, ptr, ptr, ptr, i32, i32, ptr, ptr]
+        lib.avm_logdet_psd_smem_bytes.argtypes = [i32]
+        fns = (lib.avm_logdet_psd_batched, lib.avm_logdet_psd_affine_batched,
+               lib.avm_logdet_psd_smem_bytes, lib.avm_logdet_psd_init)
     else:
-        lib.avm_schur_solve_fused.argtypes = [ptr] * 9 + [i32] * 3 + [ptr]
-        lib.avm_schur_solve_fused.restype = i32
+        # (H, g, H_lp, h_ll, g_l, lam, dx, d_rho, pred, batch, D, F, stamps,
+        #  stream)
+        lib.avm_schur_solve_fused.argtypes = [ptr] * 9 + [i32] * 3 + [ptr] * 2
+        lib.avm_schur_cluster_size.argtypes = [i32]
+        lib.avm_schur_active_clusters.argtypes = [i32]
+        lib.avm_schur_set_max_cluster.argtypes = [i32]
+        lib.avm_schur_solve_fused_smem_bytes.argtypes = [i32, i32]
+        fns = (lib.avm_schur_solve_fused, lib.avm_schur_cluster_size,
+               lib.avm_schur_active_clusters, lib.avm_schur_set_max_cluster,
+               lib.avm_schur_solve_fused_smem_bytes,
+               lib.avm_schur_solve_fused_init)
+    for fn in fns:
+        fn.restype = i32
+    fns[-1].argtypes = []
+    return fns[-1]
 
 
 def _check(x: Tensor, name: str, shape: tuple, device) -> None:
@@ -141,19 +171,125 @@ def _raise_on(err: int, name: str) -> None:
 
 
 # ----------------------------------------------------------------------------
+# The blocked LDLᵀ both kernels factor through, in plain PyTorch
+# ----------------------------------------------------------------------------
+
+# panel width of `csrc/blocked_ldl.cuh` as both kernels instantiate it
+LDL_NB = 16
+# entries of the optional clock64() stamp buffer (int64, on the card); thread
+# 0 of block 0 fills it at the phase boundaries
+LOGDET_STAMPS = ("start", "load", "factor", "end")
+SCHUR_STAMPS = ("start", "load", "schur_product", "scale", "factor", "solve",
+                "epilogue")
+
+
+def _round_up(n: int, m: int) -> int:
+    return -(-n // m) * m
+
+
+def _guard_floor(p: Tensor) -> Tensor:
+    """The logdet kernel's pivot rule: floor at 1e-30, a NaN stays NaN."""
+    return torch.where(p < 1e-30, torch.full_like(p, 1e-30), p)
+
+
+def _guard_abs(p: Tensor) -> Tensor:
+    """The Schur kernel's pivot rule: |p| ≤ 1e-30 (or NaN) → 1e-30."""
+    return torch.where(p.abs() > 1e-30, p, torch.full_like(p, 1e-30))
+
+
+def blocked_ldl_plain(A: Tensor, nb: int, rhs: Tensor = None,
+                      guard: str = "floor"):
+    """Plain PyTorch of `csrc/blocked_ldl.cuh`, step for step: a blocked
+    right-looking LDLᵀ of the lower triangle without pivoting.
+
+    A [B,n,n]; rhs [B,n] or None; guard "floor" (logdet rule) or "abs"
+    (Schur rule). The order is padded to a multiple of `nb` with identity
+    rows (pivot 1). Per panel: the nb×nb diagonal block is eliminated column
+    by column (unscaled columns W = L·D kept in place); every row below, and
+    the right-hand side as one more row, forward-solves its nb entries
+    against the block (the scaled L stays in the lower triangle, the
+    unscaled W goes transposed into the upper triangle); the trailing lower
+    triangle takes the rank-nb update L·Wᵀ. With a right-hand side a blocked
+    backward substitution follows (diagonal block, then the nb-wide update
+    of everything above it, read from the upper triangle).
+
+    Returns (pivots [B,n] after the guard, solution [B,n] or None)."""
+    guard_fn = {"floor": _guard_floor, "abs": _guard_abs}[guard]
+    B, n, _ = A.shape
+    np_ = _round_up(n, nb)
+    W = torch.zeros((B, np_, np_), dtype=A.dtype, device=A.device)
+    W[:, :n, :n] = A
+    pad = torch.arange(n, np_, device=A.device)
+    W[:, pad, pad] = 1.0
+    z = torch.zeros((B, np_), dtype=A.dtype, device=A.device)
+    if rhs is not None:
+        z[:, :n] = rhs
+    piv = torch.zeros_like(z)
+    dinv = torch.zeros_like(z)
+    for k0 in range(0, np_, nb):
+        k1 = k0 + nb
+        blk = W[:, k0:k1, k0:k1]
+        for j in range(nb):                     # diagonal block, one warp
+            d = guard_fn(blk[:, j, j])
+            piv[:, k0 + j] = d
+            dinv[:, k0 + j] = 1.0 / d
+            col = blk[:, j + 1:, j]
+            lr = col * dinv[:, k0 + j, None]
+            blk[:, j + 1:, j + 1:] -= lr[:, :, None] * col[:, None, :]
+        # panel solve: the rows below the block and the right-hand side
+        X = torch.cat([W[:, k1:, k0:k1], z[:, None, k0:k1]], dim=1)
+        L = torch.zeros_like(X)
+        for k in range(nb):
+            L[:, :, k] = X[:, :, k] * dinv[:, k0 + k, None]
+            X[:, :, k + 1:] -= L[:, :, k, None] * blk[:, None, k + 1:, k]
+        Lm, Xm = L[:, :-1], X[:, :-1]
+        W[:, k1:, k0:k1] = Lm
+        W[:, k0:k1, k1:] = Xm.mT
+        z[:, k0:k1] = X[:, -1]
+        # trailing update (the kernel touches the lower triangle only)
+        W[:, k1:, k1:] -= Lm @ Xm.mT
+        z[:, k1:] -= (Xm @ L[:, -1, :, None])[:, :, 0]
+    if rhs is None:
+        return piv[:, :n], None
+    y = torch.zeros_like(z)
+    for k0 in range(np_ - nb, -1, -nb):
+        for j in range(nb - 1, -1, -1):         # diagonal block, one warp
+            yj = z[:, k0 + j] * dinv[:, k0 + j]
+            y[:, k0 + j] = yj
+            z[:, k0:k0 + j] -= W[:, k0 + j, k0:k0 + j] * yj[:, None]
+        z[:, :k0] -= (W[:, :k0, k0:k0 + nb] @ y[:, k0:k0 + nb, None])[:, :, 0]
+    return piv[:, :n], y[:, :n]
+
+
+def _stamps_ptr(stamps, names: tuple, device) -> int:
+    if stamps is None:
+        return 0
+    if (stamps.dtype != torch.int64 or stamps.device != device
+            or not stamps.is_contiguous() or stamps.numel() < len(names)):
+        raise ValueError(
+            f"stamps: expected a contiguous int64 tensor of {len(names)} "
+            f"entries on {device}")
+    return stamps.data_ptr()
+
+
+# ----------------------------------------------------------------------------
 # Batched PSD log-determinant
 # ----------------------------------------------------------------------------
 
 
 def logdet_smem_bytes(n: int) -> int:
-    """Shared memory one block of the logdet kernel needs for order n."""
-    return n * (n | 1) * 4
+    """Shared memory one block of the logdet kernel needs for order n: the
+    matrix padded to a multiple of the panel width, row stride 4 more (16-byte
+    rows, 4 banks apart), and one reciprocal pivot per row."""
+    np_ = _round_up(n, LDL_NB)
+    return (np_ * (np_ + 4) + np_) * 4
 
 
 def logdet_psd_batched_plain(M: Tensor) -> Tensor:
-    """Plain PyTorch version of the logdet kernel: the same right-looking
-    elimination (pivot floored at 1e-30, multiply by the reciprocal pivot),
-    one batched rank-1 update per column. M [B,N,N] float32 → [B]."""
+    """Plain PyTorch version of the logdet kernel's arithmetic, unblocked:
+    right-looking elimination (pivot floored at 1e-30, multiply by the
+    reciprocal pivot), one batched rank-1 update per column. M [B,N,N]
+    float32 → [B]. (`blocked_ldl_plain` is the kernel's blocked order.)"""
     A = M.clone()
     n = A.shape[-1]
     acc = torch.zeros(A.shape[0], dtype=A.dtype, device=A.device)
@@ -166,30 +302,71 @@ def logdet_psd_batched_plain(M: Tensor) -> Tensor:
     return acc
 
 
-def logdet_psd_batched(M: Tensor) -> Tensor:
+def _check_logdet_order(N: int) -> None:
+    if logdet_smem_bytes(N) > MAX_SMEM_BYTES:
+        raise ValueError(
+            f"order {N} needs {logdet_smem_bytes(N)} bytes of shared "
+            f"memory, a block has {MAX_SMEM_BYTES}")
+
+
+def logdet_psd_batched(M: Tensor, stamps: Tensor = None) -> Tensor:
     """Batched PSD log-determinant. M: [B,N,N] float32 → [B] float32.
 
-    On a CUDA tensor: one launch of the elimination kernel (one block per
-    matrix, the matrix in shared memory). On a CPU tensor: the plain
-    version."""
+    On a CUDA tensor: one launch of the blocked elimination kernel (one
+    block per matrix, the matrix in shared memory). On a CPU tensor: the
+    plain version. `stamps`: optional int64 tensor on the card that takes
+    block 0's clock64() at `LOGDET_STAMPS`."""
     if M.dim() != 3 or M.shape[-1] != M.shape[-2]:
         raise ValueError(f"M: expected [B,N,N], got {tuple(M.shape)}")
     _check(M, "M", M.shape, M.device)
     if not M.is_cuda:
         return logdet_psd_batched_plain(M)
     B, N, _ = M.shape
-    if logdet_smem_bytes(N) > MAX_SMEM_BYTES:
-        raise ValueError(
-            f"M: order {N} needs {logdet_smem_bytes(N)} bytes of shared "
-            f"memory, a block has {MAX_SMEM_BYTES}")
+    _check_logdet_order(N)
     lib = build_kernels()["logdet_psd_batched"]
     M = M.contiguous()
     out = torch.empty(B, dtype=torch.float32, device=M.device)
     with torch.cuda.device(M.device):
         err = lib.avm_logdet_psd_batched(
             M.data_ptr(), out.data_ptr(), B, N,
+            _stamps_ptr(stamps, LOGDET_STAMPS, M.device),
             torch.cuda.current_stream().cuda_stream)
     _raise_on(err, "logdet_psd_batched")
+    launch_counts["logdet_psd_batched"] += 1
+    return out
+
+
+def logdet_psd_affine_batched(Om: Tensor, Deltas: Tensor, scale: Tensor,
+                              stamps: Tensor = None) -> Tensor:
+    """logdet(Om + scale_f · Deltas_f) for every f, float32.
+
+    Om [N,N], Deltas [F,N,N], scale [F] → [F]. On CUDA tensors: one launch
+    of the logdet kernel with the loader that forms the sum (product rounded,
+    then sum rounded, as the materialised expression) while it fills shared
+    memory, so nothing of size [F,N,N] is written. On CPU tensors:
+    `logdet_psd_batched` of the materialised sum. Counts as a launch of
+    `logdet_psd_batched`."""
+    if Om.dim() != 2 or Om.shape[0] != Om.shape[1] or Deltas.dim() != 3:
+        raise ValueError(
+            f"expected Om [N,N] and Deltas [F,N,N], got {tuple(Om.shape)} "
+            f"and {tuple(Deltas.shape)}")
+    N, F = Om.shape[0], Deltas.shape[0]
+    dev = Om.device
+    _check(Om, "Om", (N, N), dev)
+    _check(Deltas, "Deltas", (F, N, N), dev)
+    _check(scale, "scale", (F,), dev)
+    if not Om.is_cuda:
+        return logdet_psd_batched(Om[None] + scale[:, None, None] * Deltas)
+    _check_logdet_order(N)
+    lib = build_kernels()["logdet_psd_batched"]
+    Om, Deltas, scale = Om.contiguous(), Deltas.contiguous(), scale.contiguous()
+    out = torch.empty(F, dtype=torch.float32, device=dev)
+    with torch.cuda.device(dev):
+        err = lib.avm_logdet_psd_affine_batched(
+            Om.data_ptr(), Deltas.data_ptr(), scale.data_ptr(),
+            out.data_ptr(), F, N, _stamps_ptr(stamps, LOGDET_STAMPS, dev),
+            torch.cuda.current_stream().cuda_stream)
+    _raise_on(err, "logdet_psd_affine_batched")
     launch_counts["logdet_psd_batched"] += 1
     return out
 
@@ -208,66 +385,92 @@ def logdet_psd(M: Tensor) -> Tensor:
 # Fused Schur-reduction + damped solve (the LM hot path)
 # ----------------------------------------------------------------------------
 
-_SCHUR_TILE_F = 16
+_SCHUR_TILE_F = 32
 
 
 def schur_smem_bytes(D: int, F: int) -> int:
     """Shared memory one block of the fused Schur kernel needs (the layout
-    of `csrc/schur_solve_fused.cu`)."""
-    dp = (D + 3) & ~3
-    floats = 2 * _SCHUR_TILE_F * dp + dp * (dp + 1) + 5 * dp + F + 64
+    of `csrc/schur_solve_fused.cu`): the working matrix padded to the panel
+    width, a two-stage ring of `H_lp` tiles, six vectors of the padded
+    order, the right-hand side's panel row, two landmark vectors and the
+    reduction scratch."""
+    dp = _round_up(D, LDL_NB)
+    lda = dp + 4
+    fp = _round_up(F, _SCHUR_TILE_F)
+    floats = dp * lda + 2 * _SCHUR_TILE_F * lda + 6 * dp + LDL_NB + 2 * fp + 64
     return floats * 4
 
 
-def schur_solve_fused_plain(H, g, H_lp, h_ll, g_l, lam):
-    """Plain PyTorch version of the fused Schur kernel, float32, the kernel's
-    steps in the kernel's order: landmark inverses, Schur product, damping,
-    Jacobi scaling, LDLᵀ elimination with the right-hand side as an extra
-    row, backward substitution, landmark back-substitution, predicted
-    reduction. Shapes as `schur_solve_fused`."""
-    D = H.shape[-1]
+def schur_cluster_size(batch: int) -> int:
+    """Thread blocks the Schur kernel spends on one scenario of a batch: a
+    cluster of 8, 4, 2 or 1, the widest of which the card holds `batch` at
+    once (the product phase is split over the cluster). Needs the built
+    library, so a CUDA device."""
+    return build_kernels()["schur_solve_fused"].avm_schur_cluster_size(batch)
+
+
+def _schur_scaled_system(H, g, H_lp, h_ll, g_l, lam):
+    """Front half of the fused Schur solve: landmark inverses, Schur product,
+    damping, Jacobi scaling. Returns (A scaled, b scaled, ds, damp, g_red,
+    inv_h)."""
     lam_ = lam[:, None]
     inv_h = torch.where(h_ll > 1e-10, 1.0 / (h_ll * (1.0 + lam_) + 1e-12),
                         torch.zeros_like(h_ll))
     W = H_lp * inv_h[:, :, None]
     H_red = H - W.mT @ H_lp
     g_red = g - (W.mT @ g_l[:, :, None])[:, :, 0]
-
     diag = torch.diagonal(H_red, dim1=-2, dim2=-1)
     damp = lam_ * torch.clamp(diag, min=1e-8) + 1e-10
     ds = 1.0 / torch.sqrt(torch.clamp(diag + damp, min=1e-20))
     A = (H_red + torch.diag_embed(damp)) * ds[:, :, None] * ds[:, None, :]
+    return A, -g_red * ds, ds, damp, g_red, inv_h
+
+
+def _schur_outputs(y, ds, damp, g_red, inv_h, H_lp, h_ll, g_l, lam):
+    """Back half: dx, landmark back-substitution, predicted reduction."""
+    dx = y * ds
+    d_rho = -inv_h * (g_l + (H_lp @ dx[:, :, None])[:, :, 0])
+    pred = 0.5 * torch.sum(dx * (damp * dx - g_red), dim=-1) + \
+        0.5 * torch.sum(d_rho * (lam[:, None] * h_ll * d_rho - g_l), dim=-1)
+    return dx, d_rho, pred
+
+
+def schur_solve_fused_plain(H, g, H_lp, h_ll, g_l, lam):
+    """Plain PyTorch version of the fused Schur kernel's arithmetic, float32,
+    unblocked: landmark inverses, Schur product, damping, Jacobi scaling,
+    LDLᵀ elimination with the right-hand side as an extra row, backward
+    substitution, landmark back-substitution, predicted reduction. Shapes as
+    `schur_solve_fused`. (`blocked_ldl_plain` is the kernel's blocked
+    order of the elimination.)"""
+    D = H.shape[-1]
+    A, b, ds, damp, g_red, inv_h = _schur_scaled_system(
+        H, g, H_lp, h_ll, g_l, lam)
     # working array: rows 0..D-1 the matrix, row D the right-hand side
-    Wk = torch.cat([A, (-g_red * ds)[:, None, :]], dim=1)
-
-    def guard(p):
-        return torch.where(p.abs() > 1e-30, p, torch.full_like(p, 1e-30))
-
+    Wk = torch.cat([A, b[:, None, :]], dim=1)
     for j in range(D):
-        inv_d = 1.0 / guard(Wk[:, j, j])
+        inv_d = 1.0 / _guard_abs(Wk[:, j, j])
         col = Wk[:, j + 1:D, j]                       # [B, D-j-1]
         lr = Wk[:, j + 1:, j] * inv_d[:, None]        # rows j+1..D
         Wk[:, j + 1:, j + 1:] -= lr[:, :, None] * col[:, None, :]
     z = Wk[:, D, :].clone()
     y = torch.zeros_like(z)
     for j in range(D - 1, -1, -1):
-        yj = z[:, j] / guard(Wk[:, j, j])
+        yj = z[:, j] / _guard_abs(Wk[:, j, j])
         y[:, j] = yj
         z[:, :j] -= Wk[:, j, :j] * yj[:, None]
-    dx = y * ds
-    d_rho = -inv_h * (g_l + (H_lp @ dx[:, :, None])[:, :, 0])
-    pred = 0.5 * torch.sum(dx * (damp * dx - g_red), dim=-1) + \
-        0.5 * torch.sum(d_rho * (lam_ * h_ll * d_rho - g_l), dim=-1)
-    return dx, d_rho, pred
+    return _schur_outputs(y, ds, damp, g_red, inv_h, H_lp, h_ll, g_l, lam)
 
 
 def schur_solve_fused(H: Tensor, g: Tensor, H_lp: Tensor, h_ll: Tensor,
-                      g_l: Tensor, lam: Tensor):
+                      g_l: Tensor, lam: Tensor, stamps: Tensor = None):
     """One-launch damped Schur solve for a batch of scenarios, float32.
 
     H [B,D,D], g [B,D], H_lp [B,F,D], h_ll [B,F], g_l [B,F], lam [B] →
     (dx [B,D], d_rho [B,F], pred [B]). The batch is the kernel's grid: one
-    block per scenario. On CPU tensors the plain version runs instead."""
+    block per scenario, or a cluster of `schur_cluster_size(B)` blocks where
+    the batch leaves SMs idle. On CPU tensors the plain version runs instead.
+    `stamps`: optional int64 tensor on the card that takes block 0's
+    clock64() at `SCHUR_STAMPS`."""
     if H.dim() != 3 or H.shape[-1] != H.shape[-2] or H_lp.dim() != 3:
         raise ValueError(
             f"expected H [B,D,D] and H_lp [B,F,D], got {tuple(H.shape)} "
@@ -297,7 +500,7 @@ def schur_solve_fused(H: Tensor, g: Tensor, H_lp: Tensor, h_ll: Tensor,
         err = lib.avm_schur_solve_fused(
             H.data_ptr(), g.data_ptr(), H_lp.data_ptr(), h_ll.data_ptr(),
             g_l.data_ptr(), lam.data_ptr(), dx.data_ptr(), d_rho.data_ptr(),
-            pred.data_ptr(), B, D, F,
+            pred.data_ptr(), B, D, F, _stamps_ptr(stamps, SCHUR_STAMPS, dev),
             torch.cuda.current_stream().cuda_stream)
     _raise_on(err, "schur_solve_fused")
     launch_counts["schur_solve_fused"] += 1

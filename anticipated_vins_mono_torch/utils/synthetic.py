@@ -269,3 +269,45 @@ def selector_inputs(prob: WindowProblem, cfg: WindowConfig, probs_seed: int = 1)
             zeros(F, 3), torch.full((F,), 5.0, **kw), zeros(F),
             zeros(F, 2), torch.full((F,), 5.0, **kw), zeros(F))
     return probs, args
+
+
+# ----------------------------------------------------------------------------
+# Inputs for holding the two kernels against their plain versions
+# ----------------------------------------------------------------------------
+
+
+def psd_batch(B: int, N: int, seed: int, device="cuda") -> torch.Tensor:
+    """[B,N,N] float32 well-conditioned PSD matrices (logdet ~ 1.2 N)."""
+    rng = np.random.default_rng(seed)
+    A = rng.normal(size=(B, N, N)).astype(np.float32) * 0.2
+    return torch.from_numpy(
+        A @ A.transpose(0, 2, 1) + 3 * np.eye(N, dtype=np.float32)).to(device)
+
+
+def schur_system(D: int, F: int, seed: int, lam: float):
+    """Jacobian-consistent system (numpy, float32): rows touch the pose block
+    and at most one landmark column, so H − H_lpᵀ diag⁻¹ H_lp is a true PSD
+    Schur complement. Returns (H, g, H_lp, h_ll, g_l, lam)."""
+    rng = np.random.default_rng(seed)
+    N = 4 * D
+    Jp = (rng.normal(size=(N, D)) * 0.3).astype(np.float32)
+    lm_of_row = rng.integers(0, F, size=N)
+    Jl = (rng.normal(size=N) * 0.8).astype(np.float32)
+    Jl[lm_of_row >= F - 10] = 0.0
+    r = rng.normal(size=N).astype(np.float32)
+    H = Jp.T @ Jp + 0.1 * np.eye(D, dtype=np.float32)
+    onehot = np.zeros((N, F), np.float32)
+    onehot[np.arange(N), lm_of_row] = Jl
+    return (H, Jp.T @ r, onehot.T @ Jp, (onehot * onehot).sum(0),
+            onehot.T @ r, np.float32(lam))
+
+
+def schur_batch(B: int, D: int, F: int, device="cuda"):
+    """B scenarios for `schur_solve_fused` (up to six distinct systems,
+    damping 1e-1, 1e-2, 1e-3 in turn), as a list of six tensors."""
+    lams = (1e-1, 1e-2, 1e-3)
+    systems = [schur_system(D, F, seed=3 + b, lam=lams[b % 3])
+               for b in range(min(B, 6))]
+    systems = [systems[b % len(systems)] for b in range(B)]
+    return [torch.from_numpy(np.stack([s[i] for s in systems])).to(device)
+            for i in range(6)]

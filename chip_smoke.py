@@ -8,17 +8,20 @@ the sliding-window LM solve — at the reference deployment's full size
 (10-keyframe window, 128 landmark slots, D = 178, 8 LM iterations; horizon
 13, Ω 126×126, 128 candidates, κ̄ = 30), float32, random data from a seed.
 It builds the two CUDA kernels from `anticipated_vins_mono_torch/csrc/`,
-holds each against its plain PyTorch version on the card, shows that the
-main path launched them, times kernels, selector and solver, and checks the
+holds each against its plain PyTorch version on the card (the logdet kernel
+through both of its loaders), replays each from a captured CUDA graph, reads
+their phase split from the kernels' clock stamps, shows that the main path
+launched them, times kernels, selector and solver, and checks the
 results. Phases print one JSON line each; any failure raises, so the exit
 code is non-zero and no result line appears. Without a CUDA device the
 script refuses to run.
 
 Near the end one line holds `{"kernels": [...]}` (per kernel: its source,
 the TPU kernel it replaces, launches on the main path, error against the
-plain version, its time, the plain version's, a library call's, and the
-least time the card could take); then come the card's name and power limit
-as `nvidia-smi` gives them, and the last line
+plain version, its time, the plain version's, a library call's, the least
+time the card could take, and the phase split; for the Schur kernel also its
+time with the cluster split switched off); then come the card's name and
+power limit as `nvidia-smi` gives them, and the last line
 `{"ok": true, "device": {...}}`.
 """
 
@@ -39,7 +42,6 @@ PEAK_F32_FLOP_PER_S = 67e12
 SEED = 0
 KAPPA, N_IMU, DT_IMU = 30, 20, 0.005
 
-
 def emit(obj) -> None:
     print(json.dumps(obj), flush=True)
 
@@ -59,6 +61,38 @@ def cuda_ms(fn, reps: int, warmup: int = 2) -> float:
     return start.elapsed_time(end) / reps
 
 
+def capture(fn, reps: int = 1):
+    """`reps` calls of `fn()` captured into one CUDA graph (after a warm-up
+    call on a side stream). Returns (graph, outputs of the last call)."""
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        fn()
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        for _ in range(reps):
+            out = fn()
+    return graph, out
+
+
+def graph_replay(fn):
+    """Outputs of `fn()` when it is captured into a CUDA graph and replayed."""
+    graph, out = capture(fn)
+    graph.replay()
+    torch.cuda.synchronize()
+    return out
+
+
+def kernel_ms(fn, reps: int = 50) -> float:
+    """Mean milliseconds of one `fn()` on the device: `reps` calls captured
+    in one CUDA graph and replayed, timed by CUDA events. A kernel of a few
+    tens of microseconds is shorter than the host needs to launch it from
+    Python, so timing eager launches would time the host."""
+    graph, _ = capture(fn, reps)
+    return cuda_ms(graph.replay, 3, 1) / reps
+
+
 def nvidia_smi_line() -> str:
     out = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
@@ -69,39 +103,6 @@ def nvidia_smi_line() -> str:
 # ----------------------------------------------------------------------------
 # Test matrices for the kernel comparison
 # ----------------------------------------------------------------------------
-
-
-def psd_batch(B, N, seed):
-    rng = np.random.default_rng(seed)
-    A = rng.normal(size=(B, N, N)).astype(np.float32) * 0.2
-    return torch.from_numpy(
-        A @ A.transpose(0, 2, 1) + 3 * np.eye(N, dtype=np.float32)).cuda()
-
-
-def schur_system(D, F, seed, lam):
-    """Jacobian-consistent system: rows touch the pose block and at most one
-    landmark column, so H − H_lpᵀ diag⁻¹ H_lp is a true PSD Schur complement."""
-    rng = np.random.default_rng(seed)
-    N = 4 * D
-    Jp = (rng.normal(size=(N, D)) * 0.3).astype(np.float32)
-    lm_of_row = rng.integers(0, F, size=N)
-    Jl = (rng.normal(size=N) * 0.8).astype(np.float32)
-    Jl[lm_of_row >= F - 10] = 0.0
-    r = rng.normal(size=N).astype(np.float32)
-    H = Jp.T @ Jp + 0.1 * np.eye(D, dtype=np.float32)
-    onehot = np.zeros((N, F), np.float32)
-    onehot[np.arange(N), lm_of_row] = Jl
-    return (H, Jp.T @ r, onehot.T @ Jp, (onehot * onehot).sum(0),
-            onehot.T @ r, np.float32(lam))
-
-
-def schur_batch(B, D, F):
-    lams = (1e-1, 1e-2, 1e-3)
-    systems = [schur_system(D, F, seed=3 + b, lam=lams[b % 3])
-               for b in range(min(B, 6))]
-    systems = [systems[b % len(systems)] for b in range(B)]
-    return [torch.from_numpy(np.stack([s[i] for s in systems])).cuda()
-            for i in range(6)]
 
 
 def schur_library_f32(H, g, H_lp, h_ll, g_l, lam):
@@ -123,6 +124,29 @@ def schur_library_f32(H, g, H_lp, h_ll, g_l, lam):
     pred = 0.5 * torch.sum(dx * (damp * dx - g_red), -1) + \
         0.5 * torch.sum(d_rho * (lam_ * h_ll * d_rho - g_l), -1)
     return dx, d_rho, pred
+
+
+def affine_problem(F, N, seed):
+    """Ω (PSD, well conditioned), F PSD rank-3 updates Δ_f and scales p_f."""
+    from anticipated_vins_mono_torch.utils.synthetic import psd_batch
+    rng = np.random.default_rng(seed)
+    Om = psd_batch(1, N, seed)[0]
+    V = rng.normal(size=(F, N, 3)).astype(np.float32)
+    Deltas = torch.from_numpy(V @ V.transpose(0, 2, 1)).cuda()
+    scale = torch.from_numpy(rng.uniform(0.5, 1.0, F).astype(np.float32)).cuda()
+    return Om, Deltas, scale
+
+
+def phase_split(stamps, names, total_ms):
+    """Block 0's clock64() stamps → each phase's share of the block's clocks
+    and that share of the kernel's measured time, in ms."""
+    t = stamps.cpu().numpy().astype(np.float64)
+    total = t[len(names) - 1] - t[0]
+    if not total > 0:
+        raise AssertionError(f"phase stamps not written: {t.tolist()}")
+    return {n: {"share": float((t[i] - t[i - 1]) / total),
+                "ms": float((t[i] - t[i - 1]) / total * total_ms)}
+            for i, n in enumerate(names) if i > 0}
 
 
 # ----------------------------------------------------------------------------
@@ -157,6 +181,8 @@ def schur_bound(B, D, F):
 
 
 def phase_kernels(hk):
+    from anticipated_vins_mono_torch.utils.synthetic import (
+        psd_batch, schur_batch)
     t0 = time.perf_counter()
     hk.build_kernels()
     build_s = time.perf_counter() - t0
@@ -164,6 +190,16 @@ def phase_kernels(hk):
                     if "registers" in ln or "error" in ln.lower()]
              for name, log in hk.build_logs.items()}
     emit({"phase": "build", "seconds": round(build_s, 2), "ptxas": ptxas})
+    # the sizes the wrappers check before a launch are the kernels' layouts
+    libs = hk.build_kernels()
+    for n in (64, 126, 128):
+        if hk.logdet_smem_bytes(n) != \
+                libs["logdet_psd_batched"].avm_logdet_psd_smem_bytes(n):
+            raise AssertionError(f"logdet_smem_bytes({n}) is not the kernel's")
+    for D, F in ((178, 128), (178, 192), (24, 10)):
+        if hk.schur_smem_bytes(D, F) != \
+                libs["schur_solve_fused"].avm_schur_solve_fused_smem_bytes(D, F):
+            raise AssertionError(f"schur_smem_bytes({D},{F}) is not the kernel's")
 
     # --- logdet: against the plain version, atol 2e-3 (f32, N sequential
     # pivots, logdet ~ 150: the tolerance of the TPU kernel's own test)
@@ -194,12 +230,49 @@ def phase_kernels(hk):
         raise AssertionError(f"logdet on non-PSD input: kernel {out.tolist()} "
                              f"vs plain {ref.tolist()}")
 
+    # a zero pivot above non-zero entries: its 1e30 multipliers overflow, the
+    # later pivots end at -inf on the floor, and the two padding rows (126 →
+    # 128) meet 0·inf, which must not reach the result
+    over = torch.eye(126, device="cuda")[None].clone()
+    over[0, -4:, -4:] = torch.tensor(
+        [[0.0, 1e-3, 2e-3, 3e-3], [1e-3, 1.0, 0.5, 0.25],
+         [2e-3, 0.5, 1.0, 0.5], [3e-3, 0.25, 0.5, 1.0]], device="cuda")
+    out, ref = hk.logdet_psd_batched(over), hk.logdet_psd_batched_plain(over)
+    if not torch.allclose(out, ref, atol=2e-3, rtol=0):
+        raise AssertionError(f"logdet on an overflowing elimination: kernel "
+                             f"{out.tolist()} vs plain {ref.tolist()}")
+
+    # the fused loader, logdet(Om + scale·Deltas), against its plain version
+    # (the unblocked elimination of the materialised sum), same tolerance
+    Om, Deltas, scale = affine_problem(128, 126, seed=9)
+    summed = Om[None] + scale[:, None, None] * Deltas
+    aff = hk.logdet_psd_affine_batched(Om, Deltas, scale)
+    aff_err = float((aff - hk.logdet_psd_batched_plain(summed)).abs().max())
+    # both loaders hand the factorization the same bits
+    if not (aff_err <= 2e-3 and torch.equal(aff, hk.logdet_psd_batched(summed))):
+        raise AssertionError(f"fused logdet loader disagrees: {aff_err}")
+    logdet_err = max(logdet_err, aff_err)
+
     M = psd_batch(128, 126, seed=126)
     lib_logdet = lambda: 2 * torch.log(torch.diagonal(
         torch.linalg.cholesky(M), dim1=-2, dim2=-1)).sum(-1)
-    lib_err = float((hk.logdet_psd_batched(M) - lib_logdet()).abs().max())
+    eager = hk.logdet_psd_batched(M)
+    lib_err = float((eager - lib_logdet()).abs().max())
     if lib_err > 2e-3:
         raise AssertionError(f"logdet kernel vs Cholesky: {lib_err}")
+    # a captured and replayed launch gives what the eager launch gives
+    if not (torch.equal(graph_replay(lambda: hk.logdet_psd_batched(M)), eager)
+            and torch.equal(graph_replay(
+                lambda: hk.logdet_psd_affine_batched(Om, Deltas, scale)), aff)):
+        raise AssertionError("logdet kernel: graph replay differs from eager")
+    stamps = torch.zeros(len(hk.LOGDET_STAMPS), dtype=torch.int64,
+                         device="cuda")
+    hk.logdet_psd_batched(M, stamps=stamps)
+    logdet_ms = kernel_ms(lambda: hk.logdet_psd_batched(M))
+    affine_ms = kernel_ms(
+        lambda: hk.logdet_psd_affine_batched(Om, Deltas, scale))
+    aff_stamps = torch.zeros_like(stamps)
+    hk.logdet_psd_affine_batched(Om, Deltas, scale, stamps=aff_stamps)
     b_ms, b_by = logdet_bound(128, 126)
     logdet = {
         "name": "logdet_psd_batched", "route": "cuda",
@@ -207,10 +280,17 @@ def phase_kernels(hk):
         "replaces": "anticipated_vins_mono_tpu/ops/pallas_kernels.py:91",
         "shape": {"B": 128, "N": 126}, "tolerance": "atol 2e-3",
         "max_abs_err": logdet_err,
-        "ms": cuda_ms(lambda: hk.logdet_psd_batched(M), 50),
+        "ms": logdet_ms,
+        "affine_ms": affine_ms,
+        # what the fused loader replaces per greedy round: two elementwise
+        # launches that write [F,N,N] and the kernel that reads it back
+        "materialise_then_kernel_ms": kernel_ms(lambda: hk.logdet_psd_batched(
+            Om[None] + scale[:, None, None] * Deltas)),
         "plain_ms": cuda_ms(lambda: hk.logdet_psd_batched_plain(M), 3, 1),
         "bound_ms": b_ms, "bound_by": b_by,
         "library_ms": cuda_ms(lib_logdet, 20),
+        "phases": phase_split(stamps, hk.LOGDET_STAMPS, logdet_ms),
+        "affine_phases": phase_split(aff_stamps, hk.LOGDET_STAMPS, affine_ms),
     }
 
     # --- fused Schur: against the plain version at the TPU test's tolerances
@@ -237,8 +317,39 @@ def phase_kernels(hk):
     lib = schur_library_f32(*b64)
     ker = hk.schur_solve_fused(*b64)
     lib_err = float((ker[0] - lib[0]).abs().max())
+    for batch in (b64, b1):
+        eager = hk.schur_solve_fused(*batch)
+        replayed = graph_replay(lambda: hk.schur_solve_fused(*batch))
+        if not all(torch.equal(a, b) for a, b in zip(replayed, eager)):
+            raise AssertionError("Schur kernel: graph replay differs from eager")
     b_ms, b_by = schur_bound(64, 178, 128)
     b1_ms, b1_by = schur_bound(1, 178, 128)
+    split = {}
+    for tag, batch in (("b64", b64), ("b1", b1)):
+        stamps = torch.zeros(len(hk.SCHUR_STAMPS), dtype=torch.int64,
+                             device="cuda")
+        hk.schur_solve_fused(*batch, stamps=stamps)
+        ms = kernel_ms(lambda: hk.schur_solve_fused(*batch))
+        split[tag] = (ms, phase_split(stamps, hk.SCHUR_STAMPS, ms))
+    # what the cluster split is worth: the same launches with the width capped
+    # at one CTA per scenario, and the share of load + product in that kernel
+    # at B = 1 (the number that decides whether the split is called for)
+    schur_lib = libs["schur_solve_fused"]
+    by_batch = {}
+    for B in (1, 16, 32, 64):
+        batch = schur_batch(B, 178, 128)
+        run = lambda: hk.schur_solve_fused(*batch)
+        by_batch[f"b{B}"] = {"ctas_per_scenario": hk.schur_cluster_size(B),
+                             "ms": kernel_ms(run)}
+        schur_lib.avm_schur_set_max_cluster(1)
+        try:
+            by_batch[f"b{B}"]["no_cluster_ms"] = ms = kernel_ms(run)
+            if B == 1:
+                stamps.zero_()
+                hk.schur_solve_fused(*batch, stamps=stamps)
+                no_cluster_b1 = phase_split(stamps, hk.SCHUR_STAMPS, ms)
+        finally:
+            schur_lib.avm_schur_set_max_cluster(8)
     schur = {
         "name": "schur_solve_fused", "route": "cuda",
         "source": "anticipated_vins_mono_torch/csrc/schur_solve_fused.cu",
@@ -247,17 +358,59 @@ def phase_kernels(hk):
         "tolerance": "dx atol 2e-4*max(scale,1) rtol 2e-3; d_rho 2e-3; "
                      "pred rtol 2e-3",
         "max_abs_err": schur_err, "max_abs_err_vs_library_dx": lib_err,
-        "ms": cuda_ms(lambda: hk.schur_solve_fused(*b64), 50),
+        "ms": split["b64"][0],
+        "cluster_ctas_per_scenario": hk.schur_cluster_size(64),
         "plain_ms": cuda_ms(lambda: hk.schur_solve_fused_plain(*b64), 2, 1),
         "bound_ms": b_ms, "bound_by": b_by,
         "library_ms": cuda_ms(lambda: schur_library_f32(*b64), 20),
-        "b1": {"ms": cuda_ms(lambda: hk.schur_solve_fused(*b1), 50),
+        "phases": split["b64"][1],
+        "b1": {"ms": split["b1"][0],
+               "cluster_ctas_per_scenario": hk.schur_cluster_size(1),
                "plain_ms": cuda_ms(lambda: hk.schur_solve_fused_plain(*b1), 2, 1),
                "bound_ms": b1_ms, "bound_by": b1_by,
-               "library_ms": cuda_ms(lambda: schur_library_f32(*b1), 20)},
+               "library_ms": cuda_ms(lambda: schur_library_f32(*b1), 20),
+               "phases": split["b1"][1]},
+        "active_clusters": {str(w): schur_lib.avm_schur_active_clusters(w)
+                            for w in (2, 4, 8)},
+        "by_batch": by_batch, "no_cluster_b1_phases": no_cluster_b1,
+        "no_cluster_b1_load_plus_product_share":
+            no_cluster_b1["load"]["share"]
+            + no_cluster_b1["schur_product"]["share"],
     }
     emit({"phase": "kernel_check", "checked": [logdet, schur]})
     return logdet, schur
+
+
+def select_scored_by(hk, select, scorer):
+    """One "chol" selection in which `scorer(Om, Deltas, scale)` stands in for
+    the fused loader; returns what `select` returns."""
+    fused = hk.logdet_psd_affine_batched
+    hk.logdet_psd_affine_batched = scorer
+    try:
+        return select("chol")
+    finally:
+        hk.logdet_psd_affine_batched = fused
+
+
+def main_path_scoring_inputs(hk, select):
+    """(Ω, Δ_ℓ, p) of every greedy round of one "chol" selection, as the
+    selector hands them to the fused loader."""
+    seen = []
+    fused = hk.logdet_psd_affine_batched
+
+    def spy(Om, Deltas, scale):
+        seen.append((Om, Deltas, scale))
+        return fused(Om, Deltas, scale)
+
+    select_scored_by(hk, select, spy)
+    return seen
+
+
+def blocked_plain_logdet(hk, M):
+    """Σ log pivot of the blocked LDLᵀ in plain PyTorch (the kernel's order of
+    operations, so the same pivots meet the floor), and the pivots."""
+    piv, _ = hk.blocked_ldl_plain(M, hk.LDL_NB)
+    return torch.log(piv).sum(-1), piv
 
 
 def check_solve(tag, diag):
@@ -323,6 +476,75 @@ def main() -> int:
     logdet_k["launches"] = counts["logdet_psd_batched"]
     schur_k["launches"] = counts["schur_solve_fused"]
 
+    # The kernel on the main path's own Ω, Δ_ℓ and probabilities, first and
+    # last greedy round. (a) The fused loader gives the bits the kernel gives
+    # on the materialised sum. (b) Float32 resolves this Ω only in part: its
+    # entries reach 6e7, so a pivot below eps·6e7 ≈ 7 is rounding noise, and
+    # the last horizon state's pivots are (they come out negative and take
+    # the 1e-30 floor; the 1e30 multipliers then overflow, and which pivots
+    # end on the floor depends on the order of the operations). So the kernel
+    # is held against the unblocked plain version on the leading block whose
+    # pivots every candidate resolves, with the tolerance of the other checks
+    # scaled to this logdet's size (~1,800 instead of ~150: atol 2e-3, rtol
+    # 2e-5). On the whole matrix it must have a NaN exactly where the blocked
+    # plain version has one; the distances are reported, not asserted.
+    rounds = main_path_scoring_inputs(hk, select)
+    if len(rounds) != KAPPA:
+        raise AssertionError(f"fused loader called {len(rounds)} times")
+    whole = []
+    for tag, (Om_r, Deltas_r, probs_r) in (("first", rounds[0]),
+                                           ("last", rounds[-1])):
+        fused_r = hk.logdet_psd_affine_batched(Om_r, Deltas_r, probs_r)
+        summed_r = Om_r[None] + probs_r[:, None, None] * Deltas_r
+        if not torch.equal(torch.nan_to_num(fused_r, nan=-1e30), torch.nan_to_num(
+                hk.logdet_psd_batched(summed_r), nan=-1e30)):
+            raise AssertionError("fused loader differs from the kernel on the "
+                                 "materialised sum, main path inputs")
+        blocked_r, piv_r = blocked_plain_logdet(hk, summed_r)
+        unblocked_r = hk.logdet_psd_batched_plain(summed_r)
+        noise = torch.finfo(torch.float32).eps * float(summed_r.abs().max())
+        n_ok = int((piv_r > noise).all(0).long().cumprod(0).sum())
+        if n_ok < scfg.dim // 2:
+            raise AssertionError(f"only {n_ok} leading pivots are resolved")
+        lead = summed_r[:, :n_ok, :n_ok].contiguous()
+        ker_lead, ref_lead = (hk.logdet_psd_batched(lead),
+                              hk.logdet_psd_batched_plain(lead))
+        lead_err = float((ker_lead - ref_lead).abs().max())
+        if not torch.allclose(ker_lead, ref_lead, rtol=2e-5, atol=2e-3):
+            raise AssertionError(
+                f"logdet kernel disagrees with the plain version on the main "
+                f"path's inputs, leading order {n_ok}: {lead_err}")
+        # the padding rows' 0·inf under overflowed columns must not reach the
+        # result: a NaN only where the same order in plain PyTorch has one
+        if not torch.equal(torch.isnan(fused_r), torch.isnan(blocked_r)):
+            raise AssertionError(
+                f"logdet kernel has {int(torch.isnan(fused_r).sum())} NaN on "
+                f"the main path's inputs, the blocked plain version "
+                f"{int(torch.isnan(blocked_r).sum())}")
+        gap = lambda ref: float(torch.nan_to_num(fused_r - ref, nan=0.0)
+                                .abs().max())
+        whole.append({
+            "round": tag, "resolved_leading_order": n_ok,
+            "logdet_of_leading_block": float(ref_lead.mean()),
+            "max_abs_err_on_leading_block": lead_err,
+            "max_floored_pivots_per_candidate":
+                int((piv_r == 1e-30).sum(-1).max()),
+            "nan_kernel": int(torch.isnan(fused_r).sum()),
+            "nan_blocked_plain": int(torch.isnan(blocked_r).sum()),
+            "nan_unblocked_plain": int(torch.isnan(unblocked_r).sum()),
+            "max_abs_diff_to_blocked_plain": gap(blocked_r),
+            "max_abs_diff_to_unblocked_plain": gap(unblocked_r)})
+    logdet_k["main_path_inputs"] = whole
+
+    # the float32 selection itself under the three scorings: kernel, blocked
+    # plain (same order), unblocked plain (the first version's order)
+    def scored_on_sum(logdet):
+        return select_scored_by(hk, select, lambda Om, D_, p: logdet(
+            Om[None] + p[:, None, None] * D_))[0]
+
+    sel_blocked = scored_on_sum(lambda M: blocked_plain_logdet(hk, M)[0])
+    sel_unblocked = scored_on_sum(hk.logdet_psd_batched_plain)
+
     # ---------------------------------------------------------------- select
     n_sel = int(sel.sum())
     if n_sel != KAPPA or not torch.isfinite(OmF).all():
@@ -360,6 +582,11 @@ def main() -> int:
           "f64_final_logdet": ld64,
           "f64_final_omega_eig_min_max": [float(eig64[0]), float(eig64[-1])],
           "f32_final_omega_eig_min_max": [float(eig32[0]), float(eig32[-1])],
+          "f32_chol_overlap_with_blocked_plain_scoring": overlap(sel, sel_blocked),
+          "f32_chol_overlap_with_unblocked_plain_scoring":
+              overlap(sel, sel_unblocked),
+          "f32_unblocked_plain_scoring_overlap_with_f64":
+              overlap(sel_unblocked, sel64),
           "f32_chol_overlap_with_f32_lowrank": overlap(sel, sel_lr),
           "f32_chol_overlap_with_f64": overlap(sel, sel64),
           "f32_lowrank_overlap_with_f64": overlap(sel_lr, sel64),

@@ -182,6 +182,22 @@ def test_select_informative_impls_agree_and_default_is_chol_on_cpu():
         tant.select_informative(*args, KAPPA, impl="qr", device="cpu")
 
 
+@pytest.mark.parametrize("dtype", [np.float64, np.float32])
+def test_select_informative_chol_single_problem_picks_the_jax_set(dtype):
+    """The case the card serves through the fused Ω + p·Δ loader (one
+    problem, no leading batch): on the CPU it takes the materialised sum,
+    and picks what the JAX package picks in either float type (in float32
+    this Ω is beyond the type, every Cholesky gain is NaN and both packages
+    admit nothing: the reference's behaviour, reproduced)."""
+    args = [np.asarray(x, dtype) for x in _selection_problem()]
+    rsel, _ = jant.select_informative(*_j(*args), KAPPA, impl="chol")
+    tsel, tOm = tant.select_informative(*_t(*args), KAPPA, impl="chol",
+                                        device="cpu")
+    assert tOm.dtype == _t(args[0])[0].dtype
+    np.testing.assert_array_equal(tsel.numpy(), np.asarray(rsel))
+    assert int(tsel.sum()) == (KAPPA if dtype is np.float64 else 0)
+
+
 def test_select_informative_batched_problems_equal_single_ones():
     """Leading dimensions are independent selection problems."""
     Omega, Deltas, probs, valid = _selection_problem()
