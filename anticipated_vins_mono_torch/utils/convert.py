@@ -7,6 +7,10 @@ array's dtype, keeps `None` for the optional fields that are absent, and
 ALWAYS COPIES: `torch.from_numpy` alone would alias the source buffer, and a
 later in-place update on one side would silently change the other.
 `to_numpy_tree` goes back, copying as well.
+
+`device_vio_state_from_numpy` is the function that carries estimator state
+across: a `DeviceVioState` of the JAX package (with its nested `PriorFactor`
+and linearization state) as a tree of numpy arrays → the port's.
 """
 
 from __future__ import annotations
@@ -14,6 +18,7 @@ from __future__ import annotations
 import numpy as np
 import torch
 
+from anticipated_vins_mono_torch.models.estimator_device import DeviceVioState
 from anticipated_vins_mono_torch.ops.preintegration import Preintegrated
 from anticipated_vins_mono_torch.ops.window import (
     PriorFactor, WindowMeasurements, WindowState)
@@ -49,6 +54,18 @@ def window_measurements_from_numpy(meas, device="cuda") -> WindowMeasurements:
     """A `WindowMeasurements` given as nested tuples of numpy arrays
     (including its `PriorFactor` and stacked `Preintegrated`) → the port's."""
     return _rebuild(WindowMeasurements, meas, torch.device(device))
+
+
+def device_vio_state_from_numpy(tree, device="cuda") -> DeviceVioState:
+    """A `DeviceVioState` given as nested (named) tuples of numpy arrays →
+    the port's, copied, dtypes kept (`ids`, `n_solves`, `last_id`,
+    `since_fail` stay int32)."""
+    return _rebuild(DeviceVioState, tree, torch.device(device))
+
+
+def device_vio_state_to_numpy(state: DeviceVioState) -> DeviceVioState:
+    """The inverse: the same containers holding numpy arrays (copies)."""
+    return to_numpy_tree(state)
 
 
 def from_numpy_tree(tree, device="cuda"):

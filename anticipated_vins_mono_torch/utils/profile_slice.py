@@ -1,12 +1,15 @@
-"""Where the time of the main path goes, stage by stage, on one GPU.
+"""Where the time of the main paths goes, stage by stage, on one GPU.
 
     python3 -m anticipated_vins_mono_torch.utils.profile_slice [--reps 3]
 
-Times each stage of the selector (horizon, Ω, Δ_ℓ, greedy) and of one LM
+Times each stage of the selector (horizon, Ω, Δ_ℓ, greedy), of one LM
 iteration (projection rows, IMU rows, normal equations, cost pass, Schur
-solve, retraction) at the reference deployment's full size, float32, with a
-host clock around work that ends in `torch.cuda.synchronize()`, and reads the
-device's busy share over one solve and one selection from `torch.profiler`.
+solve, retraction) and of one whole frame of the estimator (`vio_step`:
+propagate, gate, DB insert, triangulate, measurements, solve, demote, both
+marginalizations, both slides) at the reference deployment's full size
+(`utils/deployment.py`), float32, with a host clock around work that ends in
+`torch.cuda.synchronize()`, and reads the device's busy share over one
+solve, one selection and one frame from `torch.profiler`.
 Prints one JSON object. Needs a CUDA device.
 """
 
@@ -20,12 +23,17 @@ import time
 import torch
 
 from anticipated_vins_mono_torch.models import anticipation as ant
+from anticipated_vins_mono_torch.models import estimator_device as ed
 from anticipated_vins_mono_torch.models.feature_selector import device_select
 from anticipated_vins_mono_torch.ops import hopper_kernels as hk
 from anticipated_vins_mono_torch.ops import lie
+from anticipated_vins_mono_torch.ops import marginalization as mg
 from anticipated_vins_mono_torch.ops import window as win
+from anticipated_vins_mono_torch.ops.triangulation import triangulate
+from anticipated_vins_mono_torch.utils import deployment as dep
 from anticipated_vins_mono_torch.utils.synthetic import (
-    batched, make_window_problem, selector_inputs)
+    analytic_trajectory, batched, make_window_problem, selector_inputs)
+from anticipated_vins_mono_torch.utils.tree import tree_map
 
 
 def host_ms(fn, reps: int) -> float:
@@ -68,25 +76,29 @@ def profile_selector(prob, cfg, reps: int) -> dict:
     p, q, v, acc, gyr, ba, bg, tic, qic, pts, probs, valid = a[:12]
     with torch.no_grad():
         ps, qs, _ = ant.imu_horizon(p, q, v, acc, gyr, ba, bg,
-                                    scfg.horizon, 20, 0.005)
+                                    scfg.horizon, dep.N_IMU, dep.DT_IMU)
         p_wc = ps + lie.quat_rotate(qs, tic.expand_as(ps))
         q_wc = lie.quat_mul(qs, qic.expand_as(qs))
-        Omega = ant.add_omega_prior(ant.omega_from_motion(qs, 20, 0.005, scfg))
+        Omega = ant.add_omega_prior(
+            ant.omega_from_motion(qs, dep.N_IMU, dep.DT_IMU, scfg))
         depth = torch.full((cfg.max_feats,), 5.0, device=dev)
         Deltas, nvis = ant.delta_ell(pts, depth, p_wc, q_wc, scfg)
         out = {
             "imu_horizon_ms": host_ms(lambda: ant.imu_horizon(
-                p, q, v, acc, gyr, ba, bg, scfg.horizon, 20, 0.005), reps),
+                p, q, v, acc, gyr, ba, bg, scfg.horizon, dep.N_IMU,
+                dep.DT_IMU), reps),
             "omega_from_motion_ms": host_ms(
-                lambda: ant.omega_from_motion(qs, 20, 0.005, scfg), reps),
+                lambda: ant.omega_from_motion(qs, dep.N_IMU, dep.DT_IMU,
+                                              scfg), reps),
             "delta_ell_x2_ms": 2 * host_ms(
                 lambda: ant.delta_ell(pts, depth, p_wc, q_wc, scfg), reps),
             "greedy_chol_ms": host_ms(lambda: ant.select_informative(
-                Omega, Deltas, probs, valid, 30, impl="chol"), reps),
+                Omega, Deltas, probs, valid, dep.KAPPA, impl="chol"), reps),
             "greedy_lowrank_ms": host_ms(lambda: ant.select_informative(
-                Omega, Deltas, probs, valid, 30, impl="lowrank"), reps),
+                Omega, Deltas, probs, valid, dep.KAPPA, impl="lowrank"), reps),
         }
-    whole = lambda: device_select(scfg, 30, 20, 0.005, *a, impl="chol")
+    whole = lambda: device_select(scfg, dep.KAPPA, dep.N_IMU, dep.DT_IMU, *a,
+                                  impl="chol")
     out["device_select_chol_ms"] = host_ms(whole, reps)
     out["device_select_chol_profile"] = device_busy(whole)
     return out
@@ -124,6 +136,77 @@ def profile_solver(prob, cfg, B: int, reps: int) -> dict:
     return out
 
 
+def profile_frame(reps: int, warm_frames: int = 15) -> dict:
+    """Per-stage host times of one `vio_step` on a steady state (the state
+    after `warm_frames` frames of the simulated sequence, prior built), each
+    stage on the inputs the step would hand it; both marginalizations and
+    both slides are timed on the same state, whichever the frame would
+    take."""
+    pr = dep.vio_params(fused_schur=True)
+    cfg = pr.wcfg
+    k = cfg.nf - 1
+    traj = analytic_trajectory((cfg.nf + warm_frames + 2) / 10.0)
+    _, packed = dep.vio_sequence(traj, torch.float32)
+    st = dep.vio_start(pr, traj, packed)
+    for pk in packed[k:k + warm_frames]:
+        st, out = ed.vio_step(pr, st, *pk)
+    pk = packed[k + warm_frames]
+    ids, pts, vel, prob, active, dts, acc, gyr, acc0, gyr0 = pk
+    with torch.no_grad():
+        entered = ed._enter_frame(pr, st, k, dts, acc, gyr, acc0, gyr0)
+        gated, _ = ed._select_stage(pr, entered, k, *pk[:8])
+        added, keyframe, _ = ed._db_add_frame(entered, k, ids, pts, vel, prob,
+                                              gated, pr.min_parallax)
+        fv = ed._feat_valid(added)
+        wstate = ed._window_state(added, cfg)
+        meas = ed._measurements(added, pr, fv * added.solved)
+        one = lambda tree: tree_map(lambda x: x[None], tree)
+        W = cfg.window
+        out = {
+            "tracked": float(out["tracked"]),
+            "n_solved": int(out["n_solved"]),
+            # which marginalization the profiled `vio_step` below takes
+            "keyframe": bool(keyframe),
+            "propagate_ms": host_ms(lambda: ed._propagate(
+                st.p[k - 1], st.q[k - 1], st.v[k - 1], st.ba[k - 1],
+                st.bg[k - 1], dts, acc, gyr, acc0, gyr0), reps),
+            "enter_frame_ms": host_ms(lambda: ed._enter_frame(
+                pr, st, k, dts, acc, gyr, acc0, gyr0), reps),
+            "select_stage_ms": host_ms(lambda: ed._select_stage(
+                pr, entered, k, *pk[:8]), reps),
+            "db_add_frame_ms": host_ms(lambda: ed._db_add_frame(
+                entered, k, ids, pts, vel, prob, gated, pr.min_parallax),
+                reps),
+            "triangulate_ms": host_ms(lambda: triangulate(
+                wstate, added.pts, added.mask, ed._anchor(added), cfg), reps),
+            "measurements_ms": host_ms(lambda: ed._measurements(
+                added, pr, fv * added.solved), reps),
+            "lm_solve_ms": host_ms(lambda: win.lm_solve(
+                one(wstate), one(meas), cfg), reps),
+            "demote_outliers_ms": host_ms(lambda: ed._demote_outliers(
+                added, pr), reps),
+            "marginalize_oldest_ms": host_ms(lambda: mg.marginalize_oldest(
+                wstate, meas._replace(feat_valid=fv), cfg), reps),
+            "marginalize_second_newest_ms": host_ms(
+                lambda: mg.marginalize_second_newest(wstate, added.prior, cfg),
+                reps),
+            "margin_old_whole_ms": host_ms(lambda: ed._margin_old(pr, added),
+                                           reps),
+            "margin_second_whole_ms": host_ms(
+                lambda: ed._margin_second(pr, added), reps),
+            "slide_oldest_db_ms": host_ms(lambda: ed._slide_oldest_db(
+                added, cfg), reps),
+            "merge_pair_buffers_ms": host_ms(lambda: ed._merge_pair_buffers(
+                added.imu_dts[W - 2], added.imu_acc[W - 2],
+                added.imu_gyr[W - 2], added.imu_dts[W - 1],
+                added.imu_acc[W - 1], added.imu_gyr[W - 1]), reps),
+        }
+    whole = lambda: ed.vio_step(pr, st, *pk)
+    out["vio_step_ms"] = host_ms(whole, reps)
+    out["vio_step_profile"] = device_busy(whole)
+    return out
+
+
 def main() -> None:
     ap = argparse.ArgumentParser(description=__doc__)
     ap.add_argument("--reps", type=int, default=3)
@@ -133,7 +216,7 @@ def main() -> None:
     smi = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
         capture_output=True, text=True, timeout=60, check=True).stdout.strip()
-    cfg = win.WindowConfig(window=10, max_feats=128, iters=8, fused_schur=True)
+    cfg = dep.window_config(fused_schur=True)
     prob = make_window_problem(cfg, seed=0, perturb=0.3, pixel_noise=0.5,
                                dtype=torch.float32)
     hk.build_kernels()
@@ -142,6 +225,7 @@ def main() -> None:
         "selector": profile_selector(prob, cfg, args.reps),
         "solver_B1": profile_solver(prob, cfg, 1, args.reps),
         "solver_B64": profile_solver(prob, cfg, 64, args.reps),
+        "frame": profile_frame(args.reps),
     }, indent=1))
 
 

@@ -85,6 +85,22 @@ def analytic_trajectory(duration: float, imu_rate: float = 200.0,
     return Trajectory(t, p, q, v, acc_body, gyr)
 
 
+def stopped_trajectory(duration: float, stop_after: float,
+                       imu_rate: float = 200.0) -> Trajectory:
+    """The analytic trajectory, stopped dead after `stop_after` seconds: it
+    hovers from then on (pose held, zero velocity and rate, the accelerometer
+    reading gravity alone). A hover gives low parallax, hence non-keyframe
+    slides."""
+    tr = analytic_trajectory(duration, imu_rate)
+    k = int(stop_after * imu_rate)
+    p, q, v = tr.p.copy(), tr.q.copy(), tr.v.copy()
+    acc, gyr = tr.acc_body.copy(), tr.gyr_body.copy()
+    p[k:], q[k:], v[k:] = p[k], q[k], 0.0
+    acc[k:] = _quat_to_rot_np(q[k]).T @ -G_W
+    gyr[k:] = 0.0
+    return Trajectory(tr.t, p, q, v, acc, gyr)
+
+
 def add_imu_noise(traj: Trajectory, noise: ImuNoise, rng: np.random.Generator,
                   ba: np.ndarray, bg: np.ndarray, imu_rate: float = 200.0
                   ) -> Trajectory:

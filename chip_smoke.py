@@ -3,21 +3,25 @@
 
     python3 chip_smoke.py
 
-Drives the port's main path — one frame of the anticipation selector feeding
-the sliding-window LM solve — at the reference deployment's full size
+Drives the port's two main paths at the reference deployment's full size
 (10-keyframe window, 128 landmark slots, D = 178, 8 LM iterations; horizon
-13, Ω 126×126, 128 candidates, κ̄ = 30), float32, random data from a seed.
+13, Ω 126×126, 128 candidates, κ̄ = 30), float32, random data from a seed:
+one isolated frame of the anticipation selector feeding the sliding-window
+LM solve, and the whole per-frame estimator step (`vio_scan`) over a
+simulated 12 s sequence, about 110 frames, with both kernels on; the same
+sequence again in float64 through `torch.linalg` is the yardstick for that
+run's trajectory error.
 It builds the two CUDA kernels from `anticipated_vins_mono_torch/csrc/`,
 holds each against its plain PyTorch version on the card (the logdet kernel
 through both of its loaders), replays each from a captured CUDA graph, reads
-their phase split from the kernels' clock stamps, shows that the main path
-launched them, times kernels, selector and solver, and checks the
+their phase split from the kernels' clock stamps, shows that each main path
+launched them, times kernels, selector, solver and frame, and checks the
 results. Phases print one JSON line each; any failure raises, so the exit
 code is non-zero and no result line appears. Without a CUDA device the
 script refuses to run.
 
 Near the end one line holds `{"kernels": [...]}` (per kernel: its source,
-the TPU kernel it replaces, launches on the main path, error against the
+the TPU kernel it replaces, launches on the main paths, error against the
 plain version, its time, the plain version's, a library call's, the least
 time the card could take, and the phase split; for the Schur kernel also its
 time with the cluster split switched off); then come the card's name and
@@ -40,7 +44,7 @@ PEAK_BYTES_PER_S = 3.35e12
 PEAK_F32_FLOP_PER_S = 67e12
 
 SEED = 0
-KAPPA, N_IMU, DT_IMU = 30, 20, 0.005
+
 
 def emit(obj) -> None:
     print(json.dumps(obj), flush=True)
@@ -419,6 +423,112 @@ def check_solve(tag, diag):
         raise AssertionError(f"{tag}: cost {cost.tolist()} vs {cost0.tolist()}")
 
 
+def drive_vio(hk, pr, traj, dtype, n_steps=None):
+    """`vio_init_oracle` on the first NF−1 frames of the simulated stream over
+    `traj`, then `vio_scan` frame by frame over the rest (or `n_steps` of it),
+    the launch counts set to 0 just before and read just after. Each frame is
+    timed on the host clock around a synchronise; the ids the frame admitted
+    into the landmark DB are counted outside the timed region."""
+    from anticipated_vins_mono_torch.models import estimator_device as ed
+    from anticipated_vins_mono_torch.utils import deployment as dep
+    from anticipated_vins_mono_torch.utils.metrics import ate_rmse
+
+    frames, packed = dep.vio_sequence(traj, dtype, seed=SEED)
+    first = pr.wcfg.nf - 1
+    last = len(frames) if n_steps is None else first + n_steps
+    st = dep.vio_start(pr, traj, packed)
+    live = lambda s: set(s.ids[s.ids >= 0].tolist())
+    ids = live(st)
+    torch.cuda.synchronize()
+    hk.reset_launch_counts()
+    outs, ms, admitted = [], [], []
+    for pk in packed[first:last]:
+        t0 = time.perf_counter()
+        st, out = ed.vio_scan(pr, st, *(x[None] for x in pk))
+        torch.cuda.synchronize()
+        ms.append((time.perf_counter() - t0) * 1e3)
+        outs.append(out)
+        now = live(st)
+        admitted.append(len(now - ids))
+        ids = now
+    counts = dict(hk.launch_counts)
+    out = {name: torch.cat([o[name] for o in outs]).cpu() for name in outs[0]}
+    T = len(outs)
+    p = out["p"].double().numpy()
+    if bool(out["fail"].any()) or not np.isfinite(p).all():
+        raise AssertionError(
+            f"vio run ({dtype}): fail flags {out['fail'].tolist()}, "
+            f"finite positions {bool(np.isfinite(p).all())}")
+    if max(admitted) > dep.KAPPA:
+        raise AssertionError(f"a frame admitted {max(admitted)} features, "
+                             f"the budget is {dep.KAPPA}")
+    # the gate let new features in, and marginalization left a prior that
+    # carries information (rows of J0 that are not zero)
+    prior_rows = int((st.prior.J0.abs().sum(dim=1) > 0).sum())
+    if sum(admitted) == 0 or float(st.prior.weight) != 1.0 or prior_rows < 6:
+        raise AssertionError(
+            f"vio run ({dtype}): admitted {sum(admitted)} features, prior "
+            f"weight {float(st.prior.weight)}, {prior_rows} prior rows")
+    t_est = np.array([fm.t for fm in frames[first:last]])
+    return {"frames": T, "counts": counts, "prior_rows": prior_rows,
+            "keyframe_fraction": float(out["keyframe"].double().mean()),
+            "ate_rmse_m": ate_rmse(t_est, p, traj.t, traj.p),
+            "ms_per_frame_median": float(np.median(ms[5:])),
+            "ms_per_frame_min_max": [min(ms[5:]), max(ms[5:])],
+            "max_admitted_per_frame": max(admitted),
+            "admitted_total": sum(admitted),
+            "final_tracked": float(out["tracked"][-1]),
+            "final_n_solved": int(out["n_solved"][-1])}
+
+
+def check_vio_counts(tag, run, per_frame):
+    want = {name: n * run["frames"] for name, n in per_frame.items()}
+    if run["counts"] != want:
+        raise AssertionError(f"{tag}: launched {run['counts']}, wanted {want}")
+
+
+def phase_vio(hk):
+    """The whole per-frame step over a simulated sequence at full width:
+    float32 with both kernels on, then the same sequence in float64 through
+    `torch.linalg` (no kernel: the port's own f64 route) as the yardstick."""
+    from anticipated_vins_mono_torch.utils import deployment as dep
+    from anticipated_vins_mono_torch.utils.synthetic import (
+        analytic_trajectory, stopped_trajectory)
+
+    both = {"logdet_psd_batched": dep.KAPPA, "schur_solve_fused": dep.LM_ITERS}
+    none = dict.fromkeys(both, 0)
+    traj = analytic_trajectory(12.0)
+    f32 = drive_vio(hk, dep.vio_params(fused_schur=True), traj, torch.float32)
+    check_vio_counts("vio f32", f32, both)
+    f64 = drive_vio(hk, dep.vio_params(fused_schur=False), traj, torch.float64)
+    check_vio_counts("vio f64", f64, none)
+    report = {"phase": "vio", "frames": f32["frames"],
+              "window": dep.WINDOW, "slots": dep.MAX_FEATS,
+              "inputs": dep.N_INPUT, "kappa": dep.KAPPA,
+              "launches_per_frame": both, "f32_kernels": f32,
+              "f64_torch_linalg": f64,
+              "tolerance": "ate_rmse: f64 < 0.10 m, f32 <= f64 + 0.05 m"}
+    # this trajectory never stops, so every slide may be a keyframe slide: a
+    # short hover run (kernels on) then shows the non-keyframe branch
+    if min(f32["keyframe_fraction"], f64["keyframe_fraction"]) == 1.0:
+        hover = drive_vio(hk, dep.vio_params(fused_schur=True),
+                          stopped_trajectory(9.0, 3.0), torch.float32,
+                          n_steps=25)
+        check_vio_counts("vio hover", hover, both)
+        report["hover_f32_kernels"] = hover
+        if hover["keyframe_fraction"] == 1.0:
+            raise AssertionError("the hover run made no non-keyframe slide")
+    if f32["keyframe_fraction"] == 0.0:
+        raise AssertionError("the sequence made no keyframe slide")
+    if not (f64["ate_rmse_m"] < 0.10
+            and f32["ate_rmse_m"] <= f64["ate_rmse_m"] + 0.05):
+        raise AssertionError(
+            f"ate_rmse: f32 kernels {f32['ate_rmse_m']} m, f64 "
+            f"{f64['ate_rmse_m']} m")
+    emit(report)
+    return f32["counts"]
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke.py needs a CUDA device: "
@@ -429,7 +539,9 @@ def main() -> int:
     from anticipated_vins_mono_torch.models.feature_selector import \
         device_select
     from anticipated_vins_mono_torch.ops import hopper_kernels as hk
-    from anticipated_vins_mono_torch.ops.window import WindowConfig, lm_solve
+    from anticipated_vins_mono_torch.ops.window import lm_solve
+    from anticipated_vins_mono_torch.utils.deployment import (
+        DT_IMU, KAPPA, N_IMU, window_config)
     from anticipated_vins_mono_torch.utils.synthetic import (
         batched, make_window_problem, selector_inputs)
 
@@ -442,7 +554,7 @@ def main() -> int:
     logdet_k, schur_k = phase_kernels(hk)
 
     # ------------------------------------------------------------ main path
-    cfg = WindowConfig(window=10, max_feats=128, iters=8, fused_schur=True)
+    cfg = window_config(fused_schur=True)
     scfg = ant.SelectorConfig()
     prob = make_window_problem(cfg, seed=SEED, perturb=0.3, pixel_noise=0.5,
                                dtype=torch.float32)
@@ -473,8 +585,7 @@ def main() -> int:
     if counts != {"logdet_psd_batched": KAPPA,
                   "schur_solve_fused": 2 * cfg.iters}:
         raise AssertionError(f"main path launched {counts}")
-    logdet_k["launches"] = counts["logdet_psd_batched"]
-    schur_k["launches"] = counts["schur_solve_fused"]
+    launches = {"select_solve": counts}
 
     # The kernel on the main path's own Ω, Δ_ℓ and probabilities, first and
     # last greedy round. (a) The fused loader gives the bits the kernel gives
@@ -626,6 +737,15 @@ def main() -> int:
             "fused_lm_iters_per_s": B * cfg.iters / ms_on * 1e3,
             "f64_schur_lm_iters_per_s": B * cfg.iters / ms_off * 1e3}
     emit(report)
+
+    # ------------------------------------------------- the whole frame, vio
+    launches["vio"] = phase_vio(hk)
+    for k in (logdet_k, schur_k):
+        k["launches_by_path"] = {path: c[k["name"]]
+                                 for path, c in launches.items()}
+        if min(k["launches_by_path"].values()) < 1:
+            raise AssertionError(f"{k['name']}: a main path never launched it")
+        k["launches"] = sum(k["launches_by_path"].values())
 
     emit({"kernels": [logdet_k, schur_k]})
     emit({"phase": "done", "seconds": round(time.perf_counter() - t_start, 1)})

@@ -46,8 +46,12 @@ def test_port_has_the_expected_modules_and_kernel_sources():
              for p in PORT_FILES[:-1]}
     for need in ("ops/lie.py", "ops/preintegration.py", "ops/factors.py",
                  "ops/window.py", "ops/hopper_kernels.py",
+                 "ops/triangulation.py", "ops/marginalization.py",
                  "models/anticipation.py", "models/feature_selector.py",
-                 "utils/synthetic.py", "utils/convert.py"):
+                 "models/estimator_device.py",
+                 "utils/synthetic.py", "utils/convert.py",
+                 "utils/sequence.py", "utils/metrics.py",
+                 "utils/profile_slice.py"):
         assert need in names
     from anticipated_vins_mono_torch.ops import hopper_kernels as hk
     for src in hk.KERNEL_SOURCES.values():
