@@ -24,9 +24,9 @@ Where the two differ:
   no-ops);
 - `DeviceVioParams` carries `sel_impl` / `sel_group`, which the JAX package
   reads from the environment (`ANT_SELECT_IMPL`, `ANT_SELECT_GROUP`);
-- `vio_init_oracle` fills the first NF−1 frames from a known initial state;
-  the hand-off from a host estimator (`vio_init_from_host`) comes with the
-  port of the host estimator chain.
+- `vio_init_oracle` fills the first NF−1 frames from a known initial state
+  on device arrays; `vio_init_from_host` snapshots the port's host
+  `VioEstimator` (`models/estimator.py`) after its initialization chain.
 """
 
 from __future__ import annotations
@@ -127,6 +127,52 @@ class DeviceVioState(NamedTuple):
     # comes from ONE raw accel sample, and building a prior before vision
     # refills would lock in the gravity misalignment.
     since_fail: Tensor  # [] i32
+
+
+def vio_init_from_host(est) -> DeviceVioState:
+    """Snapshot a (window-full, initialized) host `VioEstimator` of the port
+    into the device state — the hand-off point after the host-side
+    initialization chain (estimator.cpp:151-179: INITIAL → NON_LINEAR).
+
+    Every leaf is a copy (`torch.tensor`, and a clone of the prior): the host
+    estimator mutates its arrays in place on every later `process_frame`
+    (the FeatureDB slides are in-place shifts), and a shared buffer would
+    silently change the device state. Device and dtype are the
+    estimator's."""
+    cfg = est.cfg
+    W, S = cfg.window, MAX_IMU_PER_PAIR
+    device, d = est.device, est.dtype
+    db = est.db
+    dts = np.zeros((W, S))
+    acc = np.zeros((W, S, 3))
+    gyr = np.zeros((W, S, 3))
+    a0 = np.zeros((W, 3))
+    g0 = np.zeros((W, 3))
+    for i, pair in enumerate(est.imu_pairs[:W]):
+        n = min(len(pair["dts"]), S)
+        dts[i, :n] = pair["dts"][:n]
+        acc[i, :n] = pair["acc"][:n]
+        gyr[i, :n] = pair["gyr"][:n]
+        a0[i] = pair["acc0"]
+        g0[i] = pair["gyr0"]
+    j = lambda x: torch.tensor(np.asarray(x, np.float64), dtype=d,
+                               device=device)
+    i32 = lambda x: torch.tensor(x, dtype=torch.int32, device=device)
+    return DeviceVioState(
+        p=j(est.p), q=j(est.q), v=j(est.v), ba=j(est.ba), bg=j(est.bg),
+        tic=j(est.tic), qic=j(est.qic), td=j(est.td),
+        ids=i32(db.ids), pts=j(db.pts), vel=j(db.vel),
+        prob=j(db.prob), mask=j(db.mask), inv_depth=j(db.inv_depth),
+        solved=j(db.solved),
+        imu_dts=j(dts), imu_acc=j(acc), imu_gyr=j(gyr),
+        imu_a0=j(a0), imu_g0=j(g0),
+        stationary=j(est.stationary), td_at_frame=j(est.td_at_frame),
+        prior=tree_map(lambda x: x.to(device=device, copy=True), est.prior),
+        speed_hist=torch.zeros(8, dtype=d, device=device),
+        n_solves=i32(0),
+        last_id=i32(max(int(db.ids.max()),
+                        getattr(est.selector, "last_feature_id", -1))),
+        since_fail=i32(10_000))
 
 
 # ---------------------------------------------------------------------------
@@ -822,8 +868,7 @@ def vio_init_oracle(pr: DeviceVioParams, init_state: dict, packed_frames,
     `packed_frames` are the first NF−1 frames as `pack_frame` gives them
     (their dtype is the state's). The first `vio_step` on the result is the
     first full-window frame. The hand-off from an initialized host estimator
-    (`vio_init_from_host` in the JAX package) comes with the port of the
-    host estimator chain.
+    is `vio_init_from_host`.
     """
     cfg = pr.wcfg
     nf, W, F, S = cfg.nf, cfg.window, cfg.max_feats, MAX_IMU_PER_PAIR

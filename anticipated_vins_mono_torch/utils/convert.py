@@ -11,6 +11,9 @@ later in-place update on one side would silently change the other.
 `device_vio_state_from_numpy` is the function that carries estimator state
 across: a `DeviceVioState` of the JAX package (with its nested `PriorFactor`
 and linearization state) as a tree of numpy arrays → the port's.
+`host_estimator_from_numpy` does the same for the host `VioEstimator`: the
+fields of a host estimator as numpy (`HOST_FIELDS`) → into a port
+estimator, and `host_estimator_to_numpy` reads them back.
 """
 
 from __future__ import annotations
@@ -83,3 +86,60 @@ def to_numpy_tree(tree):
     return tree_map(
         lambda x: x.detach().cpu().numpy().copy() if torch.is_tensor(x)
         else np.array(x), tree)
+
+
+# the state of a host `VioEstimator` that a hand-over carries: window arrays,
+# bookkeeping, the raw IMU pairs, the FeatureDB arrays, the prior and the
+# selector's id bookkeeping
+HOST_FIELDS = ("p", "q", "v", "ba", "bg", "tic", "qic", "td", "stationary",
+               "td_at_frame", "n_frames", "initialized", "imu_pairs",
+               "frame_times", "_speed_hist", "_init_attempts")
+DB_FIELDS = ("ids", "pts", "vel", "prob", "mask", "inv_depth", "solved",
+             "last_obs_count")
+SELECTOR_FIELDS = ("last_feature_id", "tracked_ids", "first_image")
+
+
+def _copy(x):
+    """A deep copy of numpy arrays inside lists / dicts; scalars as they are."""
+    if isinstance(x, np.ndarray):
+        return x.copy()
+    if isinstance(x, list):
+        return [_copy(v) for v in x]
+    if isinstance(x, dict):
+        return {k: _copy(v) for k, v in x.items()}
+    if isinstance(x, set):
+        return set(x)
+    return x
+
+
+def host_estimator_from_numpy(fields: dict, est):
+    """Move the numpy state of a host estimator (`fields`: a dict with the
+    keys of `HOST_FIELDS`, `"db"` → a dict of `DB_FIELDS`, `"prior"` → a
+    `PriorFactor` as nested tuples of numpy arrays, and optionally
+    `"selector"` → a dict of `SELECTOR_FIELDS`) into the port's `est`,
+    copying every array. The prior goes to `est.device` in `est.dtype`.
+    Returns `est`."""
+    for name in HOST_FIELDS:
+        if name in fields:
+            setattr(est, name, _copy(fields[name]))
+    for name, val in fields["db"].items():
+        setattr(est.db, name, _copy(val))
+    prior = _rebuild(PriorFactor, fields["prior"], est.device)
+    est.prior = tree_map(lambda x: x.to(est.dtype), prior)
+    if est.selector is not None and "selector" in fields:
+        for name, val in fields["selector"].items():
+            setattr(est.selector, name, _copy(val))
+    return est
+
+
+def host_estimator_to_numpy(est) -> dict:
+    """The inverse: the fields of the port's host estimator as numpy
+    (copies), in the layout `host_estimator_from_numpy` takes."""
+    out = {name: _copy(getattr(est, name)) for name in HOST_FIELDS
+           if hasattr(est, name)}
+    out["db"] = {name: _copy(getattr(est.db, name)) for name in DB_FIELDS}
+    out["prior"] = to_numpy_tree(est.prior)
+    if est.selector is not None:
+        out["selector"] = {name: _copy(getattr(est.selector, name))
+                           for name in SELECTOR_FIELDS}
+    return out

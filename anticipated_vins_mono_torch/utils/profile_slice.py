@@ -6,7 +6,10 @@ Times each stage of the selector (horizon, Ω, Δ_ℓ, greedy), of one LM
 iteration (projection rows, IMU rows, normal equations, cost pass, Schur
 solve, retraction) and of one whole frame of the estimator (`vio_step`:
 propagate, gate, DB insert, triangulate, measurements, solve, demote, both
-marginalizations, both slides) at the reference deployment's full size
+marginalizations, both slides) and of one frame of the host estimator chain
+(`VioEstimator.process_frame` with the `AttentionSelector`: selector,
+preintegration, triangulation, solve, marginalization and the numpy
+bookkeeping around them) at the reference deployment's full size
 (`utils/deployment.py`), float32, with a host clock around work that ends in
 `torch.cuda.synchronize()`, and reads the device's busy share over one
 solve, one selection and one frame from `torch.profiler`.
@@ -19,10 +22,13 @@ import argparse
 import json
 import subprocess
 import time
+import types
+from collections import defaultdict
 
 import torch
 
 from anticipated_vins_mono_torch.models import anticipation as ant
+from anticipated_vins_mono_torch.models import estimator as hest
 from anticipated_vins_mono_torch.models import estimator_device as ed
 from anticipated_vins_mono_torch.models.feature_selector import device_select
 from anticipated_vins_mono_torch.ops import hopper_kernels as hk
@@ -207,6 +213,80 @@ def profile_frame(reps: int, warm_frames: int = 15) -> dict:
     return out
 
 
+def profile_host(frames: int = 10, warm_frames: int = 15) -> dict:
+    """Per-stage host times of the host estimator chain: `VioEstimator`
+    (float32, both kernels) with the `AttentionSelector` ("chol") in front,
+    from the first ground-truth state, warmed for `warm_frames` frames past
+    the first full window; then `frames` more frames with every stage wrapped
+    in a timer that synchronises before and after it. "bookkeeping" is the
+    rest of `process_frame`: the FeatureDB insert, the numpy propagation and
+    outlier test, the reads back, the host-side quaternion arithmetic.
+    `measurements_ms` includes `preintegrate_pairs_ms`."""
+    from anticipated_vins_mono_torch.models.feature_selector import \
+        AttentionSelector
+    from anticipated_vins_mono_torch.utils.sequence import SequenceSimulator
+    cfg = dep.window_config(fused_schur=True)
+    n = cfg.nf - 1 + warm_frames + frames + 2
+    traj = analytic_trajectory(n / 10.0 + 0.2)
+    stream = SequenceSimulator(traj, seed=0, pixel_noise=0.3,
+                               max_features=dep.N_INPUT).frames(n)
+    sel = AttentionSelector(ant.SelectorConfig(max_features=dep.KAPPA),
+                            max_candidates=dep.N_INPUT, impl="chol")
+    est = hest.VioEstimator(cfg, dtype=torch.float32, selector=sel,
+                            init_state={"p": traj.p[0], "q": traj.q[0],
+                                        "v": traj.v[0]})
+    for _ in range(cfg.nf - 1 + warm_frames):
+        est.process_frame(next(stream))
+    spent = defaultdict(float)
+
+    def timed(name, fn):
+        def run(*args, **kw):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            out = fn(*args, **kw)
+            torch.cuda.synchronize()
+            spent[name] += (time.perf_counter() - t0) * 1e3
+            return out
+        return run
+
+    module = {"triangulate": hest.triangulate, "lm_solve": hest.lm_solve,
+              "mg": hest.mg}
+    hest.triangulate = timed("triangulate", hest.triangulate)
+    hest.lm_solve = timed("lm_solve", hest.lm_solve)
+    hest.mg = types.SimpleNamespace(
+        marginalize_oldest=timed("marginalize_oldest",
+                                 module["mg"].marginalize_oldest),
+        marginalize_second_newest=timed("marginalize_second_newest",
+                                        module["mg"].marginalize_second_newest))
+    for name in ("_propagate", "_device_state", "_measurements",
+                 "_preintegrate_pairs", "_reject_outliers", "_slide_oldest_db",
+                 "_keyframe_snapshot"):
+        setattr(est, name, timed(name.lstrip("_"), getattr(est, name)))
+    sel.select = timed("select", sel.select)
+    whole = []
+    try:
+        for _ in range(frames):
+            fm = next(stream)
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            est.process_frame(fm)
+            torch.cuda.synchronize()
+            whole.append((time.perf_counter() - t0) * 1e3)
+    finally:
+        hest.triangulate, hest.lm_solve, hest.mg = (
+            module["triangulate"], module["lm_solve"], module["mg"])
+    out = {f"{name}_ms": ms / frames for name, ms in sorted(spent.items())}
+    out["process_frame_ms"] = sum(whole) / frames
+    out["process_frame_min_max_ms"] = [min(whole), max(whole)]
+    nested = ("preintegrate_pairs",)
+    out["bookkeeping_ms"] = out["process_frame_ms"] - sum(
+        ms for name, ms in spent.items() if name not in nested) / frames
+    out["keyframe_fraction"] = est.diag.keyframes / max(est.diag.solves, 1)
+    out["process_frame_profile"] = device_busy(
+        lambda: est.process_frame(next(stream)))
+    return out
+
+
 def main() -> None:
     ap = argparse.ArgumentParser(description=__doc__)
     ap.add_argument("--reps", type=int, default=3)
@@ -226,6 +306,7 @@ def main() -> None:
         "solver_B1": profile_solver(prob, cfg, 1, args.reps),
         "solver_B64": profile_solver(prob, cfg, 64, args.reps),
         "frame": profile_frame(args.reps),
+        "host": profile_host(),
     }, indent=1))
 
 

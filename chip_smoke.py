@@ -7,10 +7,15 @@ Drives the port's two main paths at the reference deployment's full size
 (10-keyframe window, 128 landmark slots, D = 178, 8 LM iterations; horizon
 13, Ω 126×126, 128 candidates, κ̄ = 30), float32, random data from a seed:
 one isolated frame of the anticipation selector feeding the sliding-window
-LM solve, and the whole per-frame estimator step (`vio_scan`) over a
-simulated 12 s sequence, about 110 frames, with both kernels on; the same
-sequence again in float64 through `torch.linalg` is the yardstick for that
-run's trajectory error.
+LM solve; the whole per-frame estimator step (`vio_scan`) over a simulated
+12 s sequence, about 110 frames, with both kernels on; and the host
+estimator chain (`VioEstimator` with the `AttentionSelector`, fed by
+`run_sequence`: the README's path) over 60 frames of the same sequence with
+both kernels on, from the first ground-truth state and through the
+visual-inertial initialization, and its hand-off to the device step
+(`vio_init_from_host` → `vio_step`, float64). The same sequences again in
+float64 through `torch.linalg` are the yardstick for the runs' trajectory
+error.
 It builds the two CUDA kernels from `anticipated_vins_mono_torch/csrc/`,
 holds each against its plain PyTorch version on the card (the logdet kernel
 through both of its loaders), replays each from a captured CUDA graph, reads
@@ -44,6 +49,12 @@ PEAK_BYTES_PER_S = 3.35e12
 PEAK_F32_FLOP_PER_S = 67e12
 
 SEED = 0
+# the real initialization's ATE RMSE over 60 frames of the host phase's
+# stream: what the JAX package gives on the CPU in float64 (0.1437879 m,
+# initialized at frame 10, the first full window), and the bound held on the
+# card, about 10 % above it
+HOST_INIT_JAX_ATE_M = 0.1437879
+HOST_INIT_ATE_BOUND_M = 0.16
 
 
 def emit(obj) -> None:
@@ -529,6 +540,202 @@ def phase_vio(hk):
     return f32["counts"]
 
 
+class TimedFrames:
+    """The simulator as `run_sequence` sees it, timing each `process_frame`
+    on the host clock (from handing a frame out to being asked for the next,
+    with a synchronise before the clock is read) and noting whether the
+    selector ran its anticipation pipeline in that frame."""
+
+    def __init__(self, sim, selector):
+        self.sim, self.traj, self.selector = sim, sim.traj, selector
+        self.ms, self.anticipated = [], []
+
+    def frames(self, n_frames=None):
+        for fm in self.sim.frames(n_frames):
+            calls = self.selector.n_anticipate
+            t0 = time.perf_counter()
+            yield fm
+            torch.cuda.synchronize()
+            self.ms.append((time.perf_counter() - t0) * 1e3)
+            self.anticipated.append(self.selector.n_anticipate > calls)
+
+
+def drive_host(hk, dtype, fused_schur, n_frames, oracle=True):
+    """The README's path: `VioEstimator` with an `AttentionSelector` in front
+    of it, fed by `run_sequence`, at the reference deployment's width over
+    the simulated stream of `analytic_trajectory(12.0)`; from the first
+    ground-truth state (`oracle`) or through the visual-inertial
+    initialization chain. The selector scores with "chol" (the logdet kernel
+    in float32, `torch.linalg` in float64). The launch counts are set to 0
+    just before the run and read just after."""
+    from anticipated_vins_mono_torch.models.anticipation import SelectorConfig
+    from anticipated_vins_mono_torch.models.estimator import VioEstimator
+    from anticipated_vins_mono_torch.models.feature_selector import \
+        AttentionSelector
+    from anticipated_vins_mono_torch.models.pipeline import run_sequence
+    from anticipated_vins_mono_torch.utils import deployment as dep
+    from anticipated_vins_mono_torch.utils.sequence import SequenceSimulator
+    from anticipated_vins_mono_torch.utils.synthetic import \
+        analytic_trajectory
+
+    traj = analytic_trajectory(12.0)
+    sel = AttentionSelector(SelectorConfig(max_features=dep.KAPPA),
+                            max_candidates=dep.N_INPUT, impl="chol")
+    sim = TimedFrames(SequenceSimulator(traj, seed=SEED, pixel_noise=0.3,
+                                        max_features=dep.N_INPUT), sel)
+    init = {"p": traj.p[0], "q": traj.q[0], "v": traj.v[0]} if oracle \
+        else None
+    est = VioEstimator(dep.window_config(fused_schur), dtype=dtype,
+                       init_state=init, selector=sel)
+    torch.cuda.synchronize()
+    hk.reset_launch_counts()
+    res = run_sequence(est, sim, n_frames=n_frames)
+    counts = dict(hk.launch_counts)
+    d = res.diag
+    # after the last slide the newest frame sits in slot NF-2
+    newest_obs = int(est.db.mask[:, est.cfg.nf - 2].sum())
+    prior_rows = int((est.prior.J0.abs().sum(dim=1) > 0).sum())
+    # the frame (0-based) of the initialization: the trajectory restarts
+    # there
+    init_frame = None
+    if not oracle and est.initialized:
+        init_frame = len(sim.ms) - len(est.trajectory)
+    # frames that solve (from the first full window on), after the first
+    # five of them; the selector's time in the frames where it anticipated
+    # (frame 0 has no selector call)
+    ms = sim.ms[est.cfg.nf - 1 + 5:]
+    sel_ms = [t * 1e3 for t, a in zip(d.sel_s, sim.anticipated[1:]) if a]
+    return {"frames": len(sim.ms), "counts": counts, "solves": d.solves,
+            "failures": d.failures, "keyframes": d.keyframes,
+            "keyframe_fraction": d.keyframes / max(d.solves, 1),
+            "anticipate_calls": sel.n_anticipate,
+            "initialized": est.initialized, "init_frame": init_frame,
+            "init_diag": est.init_diag,
+            "ate_rmse_m": float(res.ate),
+            "newest_frame_observations": newest_obs,
+            "prior_rows": prior_rows, "prior_weight": float(est.prior.weight),
+            "ms_per_frame_median": float(np.median(ms)),
+            "ms_per_frame_min_max": [min(ms), max(ms)],
+            "anticipating_sel_ms_median": float(np.median(sel_ms)),
+            "solve_ms_median": float(np.median(d.solve_s[5:])) * 1e3}
+
+
+def check_host_run(tag, run, per_solve_schur, per_call_logdet):
+    from anticipated_vins_mono_torch.utils import deployment as dep
+    want = {"logdet_psd_batched": per_call_logdet * run["anticipate_calls"],
+            "schur_solve_fused": per_solve_schur * run["solves"]}
+    if run["counts"] != want:
+        raise AssertionError(f"{tag}: launched {run['counts']}, wanted {want}")
+    if run["failures"] or not run["initialized"] or run["solves"] < 1:
+        raise AssertionError(f"{tag}: {run['failures']} failures, "
+                             f"initialized {run['initialized']}, "
+                             f"{run['solves']} solves")
+    if per_call_logdet and run["anticipate_calls"] < 1:
+        raise AssertionError(f"{tag}: the selector never anticipated")
+    # the budget bites: tracked features are always kept, so the newest
+    # frame can hold a little more than κ̄, but far fewer than the 128
+    # features the stream offers
+    if not 10 <= run["newest_frame_observations"] <= 2 * dep.KAPPA:
+        raise AssertionError(f"{tag}: the newest frame holds "
+                             f"{run['newest_frame_observations']} features")
+    if run["prior_weight"] != 1.0 or run["prior_rows"] < 6:
+        raise AssertionError(f"{tag}: prior weight {run['prior_weight']}, "
+                             f"{run['prior_rows']} prior rows")
+
+
+def drive_handoff(n_steps=14):
+    """The port's host estimator (oracle start, no selector) to its first
+    full window, `vio_init_from_host`, then `n_steps` of `vio_step` beside
+    as many `process_frame`s on the same frames, float64: the newest solved
+    position and velocity agree within 1e-4 every frame (the reference's
+    host/device bound), the landmark slots exactly at the end."""
+    from anticipated_vins_mono_torch.models import estimator_device as ed
+    from anticipated_vins_mono_torch.models.estimator import VioEstimator
+    from anticipated_vins_mono_torch.utils import deployment as dep
+    from anticipated_vins_mono_torch.utils.sequence import SequenceSimulator
+    from anticipated_vins_mono_torch.utils.synthetic import \
+        analytic_trajectory
+
+    traj = analytic_trajectory(12.0)
+    frames = list(SequenceSimulator(traj, seed=SEED, pixel_noise=0.3,
+                                    max_features=dep.N_INPUT).frames())
+    cfg = dep.window_config(fused_schur=False)
+    est = VioEstimator(cfg, init_state={"p": traj.p[0], "q": traj.q[0],
+                                        "v": traj.v[0]})
+    i = 0
+    while not (est.initialized and est.n_frames == cfg.nf - 1):
+        est.process_frame(frames[i])
+        i += 1
+    st = ed.vio_init_from_host(est)
+    pr = ed.DeviceVioParams(wcfg=cfg)
+    dp = dv = 0.0
+    host_ms, step_ms = [], []
+    for fm in frames[i:i + n_steps]:
+        t0 = time.perf_counter()
+        est.process_frame(fm)
+        t1 = time.perf_counter()
+        st, out = ed.vio_step(pr, st, *ed.pack_frame(fm, dep.N_INPUT))
+        p, v = out["p"].cpu().numpy(), out["v"].cpu().numpy()
+        host_ms.append((t1 - t0) * 1e3)
+        step_ms.append((time.perf_counter() - t1) * 1e3)
+        _, p_host, _, v_host = est.trajectory[-1]
+        dp = max(dp, float(np.abs(p - p_host).max()))
+        dv = max(dv, float(np.abs(v - v_host).max()))
+        if bool(out["fail"]) or dp > 1e-4 or dv > 1e-4:
+            raise AssertionError(f"hand-off: vio_step vs process_frame at "
+                                 f"frame {len(host_ms)}: dp {dp}, dv {dv}, "
+                                 f"fail {bool(out['fail'])}")
+    same_ids = np.array_equal(st.ids.cpu().numpy(), est.db.ids)
+    same_mask = np.array_equal(st.mask.cpu().numpy(), est.db.mask)
+    if not (same_ids and same_mask):
+        raise AssertionError(f"hand-off: slots differ (ids {same_ids}, "
+                             f"mask {same_mask})")
+    return {"frames": n_steps, "handoff_frame": i, "max_abs_dp_m": dp,
+            "max_abs_dv_m_s": dv, "tolerance": "p, v atol 1e-4; ids, mask exact",
+            "process_frame_ms_median": float(np.median(host_ms)),
+            "vio_step_ms_median": float(np.median(step_ms))}
+
+
+def phase_host(hk, smi, n_frames=60):
+    """The host estimator chain at full width: float32 with both kernels,
+    the same in float64 through `torch.linalg` (the yardstick), the real
+    initialization chain, and the hand-off to the per-frame device step."""
+    from anticipated_vins_mono_torch.utils import deployment as dep
+
+    f32 = drive_host(hk, torch.float32, True, n_frames)
+    check_host_run("host f32", f32, dep.LM_ITERS, dep.KAPPA)
+    f64 = drive_host(hk, torch.float64, False, n_frames)
+    check_host_run("host f64", f64, 0, 0)
+    if not (f64["ate_rmse_m"] < 0.10
+            and f32["ate_rmse_m"] <= f64["ate_rmse_m"] + 0.05):
+        raise AssertionError(f"host ate_rmse: f32 kernels {f32['ate_rmse_m']}"
+                             f" m, f64 {f64['ate_rmse_m']} m")
+    # no init state: SfM + gyro bias + linear alignment on the first full
+    # window, float64, the selector scoring through torch.linalg. The JAX
+    # package on the CPU initializes this sequence at frame 10 (0-based: the
+    # first full window) and ends 60 frames at HOST_INIT_JAX_ATE_M
+    init = drive_host(hk, torch.float64, False, n_frames, oracle=False)
+    check_host_run("host init", init, 0, 0)
+    if init["init_frame"] != dep.WINDOW \
+            or not init["ate_rmse_m"] < HOST_INIT_ATE_BOUND_M:
+        raise AssertionError(
+            f"host init: initialized at frame {init['init_frame']}, ATE "
+            f"{init['ate_rmse_m']} m (bound {HOST_INIT_ATE_BOUND_M} m)")
+    handoff = drive_handoff()
+    emit({"phase": "host", "frames": n_frames, "window": dep.WINDOW,
+          "slots": dep.MAX_FEATS, "inputs": dep.N_INPUT, "kappa": dep.KAPPA,
+          "launches_per_solve_and_anticipate_call": {
+              "schur_solve_fused": dep.LM_ITERS,
+              "logdet_psd_batched": dep.KAPPA},
+          "f32_kernels": f32, "f64_torch_linalg": f64, "real_init": init,
+          "real_init_bound": {"ate_rmse_m": HOST_INIT_ATE_BOUND_M,
+                              "jax_cpu_ate_rmse_m": HOST_INIT_JAX_ATE_M},
+          "handoff": handoff,
+          "tolerance": "ate_rmse: f64 < 0.10 m, f32 <= f64 + 0.05 m",
+          "nvidia_smi": smi})
+    return f32["counts"]
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke.py needs a CUDA device: "
@@ -740,6 +947,8 @@ def main() -> int:
 
     # ------------------------------------------------- the whole frame, vio
     launches["vio"] = phase_vio(hk)
+    # ------------------------------------------ the host estimator chain
+    launches["host"] = phase_host(hk, smi)
     for k in (logdet_k, schur_k):
         k["launches_by_path"] = {path: c[k["name"]]
                                  for path, c in launches.items()}

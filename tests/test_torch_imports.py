@@ -48,7 +48,9 @@ def test_port_has_the_expected_modules_and_kernel_sources():
                  "ops/window.py", "ops/hopper_kernels.py",
                  "ops/triangulation.py", "ops/marginalization.py",
                  "models/anticipation.py", "models/feature_selector.py",
-                 "models/estimator_device.py",
+                 "models/estimator_device.py", "models/feature_db.py",
+                 "models/initialization.py", "models/estimator.py",
+                 "models/pipeline.py",
                  "utils/synthetic.py", "utils/convert.py",
                  "utils/sequence.py", "utils/metrics.py",
                  "utils/profile_slice.py"):
