@@ -256,7 +256,12 @@ def delta_ell(bearing_c: Tensor, depth: Tensor,
         Ch = Ch * w[..., None, None]
 
     EtE = torch.sum(Ch, dim=-3)
-    W = torch.linalg.inv(EtE + 1e-12 * torch.eye(3, dtype=dtype, device=dev))
+    # `inv_ex`: a candidate seen only in frame k+1 has a rank-2 EtE, and in
+    # float32 the 1e-12 ridge vanishes in its O(1) entries; `jnp.linalg.inv`
+    # then returns inf/NaN for that candidate without a word, where
+    # `torch.linalg.inv` would raise and stop the frame
+    W = torch.linalg.inv_ex(
+        EtE + 1e-12 * torch.eye(3, dtype=dtype, device=dev)).inverse
 
     # Big = blkdiag(C) − C W Cᵀ over the 3H-dim stacked position space,
     # embedded into the D-dim horizon state by the constant selector E

@@ -13,7 +13,12 @@ across: a `DeviceVioState` of the JAX package (with its nested `PriorFactor`
 and linearization state) as a tree of numpy arrays → the port's.
 `host_estimator_from_numpy` does the same for the host `VioEstimator`: the
 fields of a host estimator as numpy (`HOST_FIELDS`) → into a port
-estimator, and `host_estimator_to_numpy` reads them back.
+estimator, and `host_estimator_to_numpy` reads them back. For the image
+path: `camera_from_numpy` (any of the four camera models),
+`box_world_from_numpy` (the renderer's world) and
+`tracker_state_{from,to}_numpy` (the device tracker's state: the previous
+pyramid, the slots, ids, the float32 time; the JAX state's PRNG key stays
+behind, the port's draws come from a `torch.Generator`).
 """
 
 from __future__ import annotations
@@ -22,9 +27,12 @@ import numpy as np
 import torch
 
 from anticipated_vins_mono_torch.models.estimator_device import DeviceVioState
+from anticipated_vins_mono_torch.models.tracker_device import TrackerState
+from anticipated_vins_mono_torch.ops import cameras
 from anticipated_vins_mono_torch.ops.preintegration import Preintegrated
 from anticipated_vins_mono_torch.ops.window import (
     PriorFactor, WindowMeasurements, WindowState)
+from anticipated_vins_mono_torch.utils.render import BoxWorld
 from anticipated_vins_mono_torch.utils.tree import tree_map
 
 
@@ -143,3 +151,45 @@ def host_estimator_to_numpy(est) -> dict:
         out["selector"] = {name: _copy(getattr(est.selector, name))
                            for name in SELECTOR_FIELDS}
     return out
+
+
+# ----------------------------------------------------------------------------
+# The image path: cameras, the rendered world, the device tracker's state
+# ----------------------------------------------------------------------------
+
+_CAMERAS = {c.__name__: c for c in (
+    cameras.PinholeCamera, cameras.EquidistantCamera, cameras.MeiCamera,
+    cameras.ScaramuzzaCamera)}
+
+
+def camera_from_numpy(cam, device="cuda"):
+    """A camera model of the JAX package whose parameters are numpy arrays
+    → the port's model of the same name, parameters copied into tensors
+    (dtype kept), `width` / `height` as ints."""
+    cls = _CAMERAS[type(cam).__name__]
+    vals = [int(getattr(cam, f)) if f in ("width", "height")
+            else _to_tensor(getattr(cam, f), torch.device(device))
+            for f in cls._fields]
+    return cls(*vals)
+
+
+def box_world_from_numpy(world, device="cuda") -> BoxWorld:
+    """A `BoxWorld` given as a (named) tuple of numpy arrays → the port's."""
+    return _rebuild(BoxWorld, world, torch.device(device))
+
+
+def tracker_state_from_numpy(state, device="cuda") -> TrackerState:
+    """A device tracker's state (the JAX `TrackerState` with numpy leaves,
+    or the port's) → the port's `TrackerState`, every field copied, dtypes
+    kept (`ids`, `life`, `next_id` int32, `t` float32). Fields are taken by
+    name, so the JAX state's `key` is left out."""
+    dev = torch.device(device)
+    vals = {f: _to_tensor(getattr(state, f), dev)
+            for f in TrackerState._fields if f != "pyr"}
+    vals["pyr"] = tuple(_to_tensor(x, dev) for x in state.pyr)
+    return TrackerState(**vals)
+
+
+def tracker_state_to_numpy(state: TrackerState) -> TrackerState:
+    """The inverse: the same container holding numpy arrays (copies)."""
+    return to_numpy_tree(state)

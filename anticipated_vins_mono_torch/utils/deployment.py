@@ -5,20 +5,59 @@ sizes and take them from here, so that the two cannot drift apart: a
 10-keyframe window (NF = 11), 128 landmark slots, 128 input feature slots,
 D = 178, 8 LM iterations, 64 IMU samples per pair buffer; the anticipation
 gate with κ̄ = 30 over a 13-frame horizon of 20 IMU substeps of 5 ms, scored
-with "chol" (the batched log-det kernel in float32 on the card).
+with "chol" (the batched log-det kernel in float32 on the card). The image
+path's front end: the EuRoC `cam0` camera (752×480, radtan), a tracker of
+`N_INPUT` slots with min-distance 30 px over a 4-level pyramid (the sizes
+of the JAX package's `utils/image_benchmark.py`), frames at 10 Hz and IMU
+samples at 200 Hz.
 """
 
 from __future__ import annotations
 
+import torch
+
 from anticipated_vins_mono_torch.models import anticipation as ant
 from anticipated_vins_mono_torch.models import estimator_device as ed
+from anticipated_vins_mono_torch.models import tracker_device as td
+from anticipated_vins_mono_torch.ops import cameras, lie
 from anticipated_vins_mono_torch.ops.window import WindowConfig
+from anticipated_vins_mono_torch.utils import render
 from anticipated_vins_mono_torch.utils.sequence import SequenceSimulator
-from anticipated_vins_mono_torch.utils.synthetic import Trajectory
+from anticipated_vins_mono_torch.utils.synthetic import (Trajectory,
+                                                        loop_trajectory)
 
 WINDOW, MAX_FEATS, LM_ITERS = 10, 128, 8
 N_INPUT = 128                      # feature slots of one incoming frame
 KAPPA, N_IMU, DT_IMU = 30, 20, 0.005
+TRACKER_MIN_DIST, TRACKER_LEVELS = 30, 4
+FRAME_HZ, IMU_HZ = 10.0, 200.0
+
+
+def camera(device="cuda") -> cameras.PinholeCamera:
+    """The EuRoC cam0 intrinsics and distortion, float32."""
+    return cameras.euroc_camera(device=device)
+
+
+def image_scene(device="cuda", seed: int = 0):
+    """The image path's scene on `device`: the circuit trajectory (20 s, two
+    laps of radius 3 m, the camera looking outward), the textured box world
+    around it (`make_box_world(traj.p, seed=seed)`), the EuRoC camera and its
+    per-pixel rays. Returns (traj, cam, world, rays, R_wb of every IMU
+    sample [N,3,3], IMU samples per frame); the camera frame is the body
+    frame (identity extrinsics, the `VioEstimator` default)."""
+    traj = loop_trajectory(20.0, laps=2.0, radius=3.0)
+    cam = camera(device)
+    world = render.make_box_world(traj.p, seed=seed, device=device)
+    R_all = lie.quat_to_rot(torch.tensor(traj.q)).numpy()
+    stride = int(round(IMU_HZ / FRAME_HZ))
+    return traj, cam, world, render.camera_rays(cam), R_all, stride
+
+
+def tracker_params() -> td.TrackerDeviceParams:
+    """The device tracker at the deployment's width: `N_INPUT` slots."""
+    return td.TrackerDeviceParams(max_features=N_INPUT,
+                                  min_dist=TRACKER_MIN_DIST,
+                                  levels=TRACKER_LEVELS)
 
 
 def window_config(fused_schur: bool = True) -> WindowConfig:

@@ -9,10 +9,13 @@ propagate, gate, DB insert, triangulate, measurements, solve, demote, both
 marginalizations, both slides) and of one frame of the host estimator chain
 (`VioEstimator.process_frame` with the `AttentionSelector`: selector,
 preintegration, triangulation, solve, marginalization and the numpy
-bookkeeping around them) at the reference deployment's full size
+bookkeeping around them) and of one frame of the image path (render, CLAHE
++ pyramid, LK, RANSAC, occupancy + detection, packaging, the node's
+alignment and `process_frame`) at the reference deployment's full size
 (`utils/deployment.py`), float32, with a host clock around work that ends in
 `torch.cuda.synchronize()`, and reads the device's busy share over one
-solve, one selection and one frame from `torch.profiler`.
+solve, one selection, one frame and one tracker step from
+`torch.profiler`.
 Prints one JSON object. Needs a CUDA device.
 """
 
@@ -287,6 +290,109 @@ def profile_host(frames: int = 10, warm_frames: int = 15) -> dict:
     return out
 
 
+def profile_image(frames: int = 10, warm_frames: int = 15) -> dict:
+    """Per-stage host times of the image path (`utils/deployment.image_scene`
+    at 752×480, the 128-slot device tracker, `VioNode` with the native
+    aligner, `VioEstimator` in float32 with both kernels and the "chol"
+    `AttentionSelector`, from the first ground-truth state): `warm_frames`
+    frames past the first full window through the facades, then `frames`
+    frames with the tracker's step taken apart into its stages (the step's
+    own functions on its own inputs, each run once), each between two
+    synchronises. `occupancy_detect_ms` is `_detect_free` (occupancy +
+    detection); `packaging_ms` is `_refill` (slot bookkeeping,
+    undistortion, velocity, probability); `node_ms` is `push_features`
+    (alignment + `process_frame`)."""
+    from anticipated_vins_mono_torch.models import frontend as fe
+    from anticipated_vins_mono_torch.models import tracker_device as td
+    from anticipated_vins_mono_torch.models.feature_selector import \
+        AttentionSelector
+    from anticipated_vins_mono_torch.models.node import VioNode
+    from anticipated_vins_mono_torch.ops import cameras
+    from anticipated_vins_mono_torch.utils import render
+    traj, cam, world, rays, R_all, stride = dep.image_scene("cuda")
+    tp = dep.tracker_params()
+    tracker = td.DeviceFeatureTracker(cam, tp)
+    sel = AttentionSelector(ant.SelectorConfig(max_features=dep.KAPPA),
+                            max_candidates=dep.N_INPUT, impl="chol",
+                            device="cuda")
+    est = hest.VioEstimator(dep.window_config(True), dtype=torch.float32,
+                            selector=sel, device="cuda", init_state={
+                                "p": traj.p[0], "q": traj.q[0],
+                                "v": traj.v[0]})
+    node = VioNode(est)
+    spent = defaultdict(float)
+
+    def timed(name, fn, *args, **kw):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = fn(*args, **kw)
+        torch.cuda.synchronize()
+        spent[name] += (time.perf_counter() - t0) * 1e3
+        return out
+
+    align = node.aligner.frame_batch
+    node.aligner.frame_batch = lambda *a, **kw: timed("node_alignment",
+                                                      align, *a, **kw)
+    pf = est.process_frame
+    est.process_frame = lambda fm: timed("process_frame", pf, fm)
+
+    def frame(f, staged):
+        k = f * stride
+        for j in range(k - stride + 1 if f else 0, k + 1):
+            node.push_imu(traj.t[j], traj.acc_body[j], traj.gyr_body[j])
+        t = float(traj.t[k])
+        img = timed("render", render.render_frame, world, cam, rays,
+                    traj.p[k], R_all[k])
+        st = tracker.state
+        if not staged or st is None:
+            feats = timed("tracker", tracker.process, img, t)
+        else:
+            eq, pyr = timed("prep", td._prep, img, tp.levels)
+            new_pts, lk_ok = timed("lk_track", fe.lk_track, st.pyr, pyr,
+                                   st.pts, st.active.float(),
+                                   levels=tp.levels)
+            u = td.ransac_uniforms(tp.ransac_iters, tp.max_features,
+                                   tracker.generator, device="cuda")
+            ok = timed("ransac", lambda: td.ransac_essential_mask(
+                st.norm, cameras.lift_projective(cam, new_pts)[:, :2],
+                lk_ok & st.active, u, thresh=tp.ransac_thresh_px / cam.fx))
+            det = timed("occupancy_detect", td._detect_free, tp, eq,
+                        new_pts, ok)
+            tracker.state, meas = timed(
+                "packaging", td._refill, cam, tp, st, pyr, new_pts, ok,
+                torch.tensor(t, dtype=torch.float32, device="cuda"), det)
+            ids, rays_, vel, prob, active = timed(
+                "read_measurement", lambda: [m.cpu().numpy() for m in meas])
+            feats = {int(i): (rays_[n], vel[n], float(prob[n]))
+                     for n, i in enumerate(ids) if active[n]}
+        timed("node", node.push_features, t, feats)
+
+    warm = dep.WINDOW + warm_frames
+    for f in range(warm):
+        frame(f, staged=False)
+    spent.clear()
+    whole = []
+    for f in range(warm, warm + frames):
+        t0 = time.perf_counter()
+        frame(f, staged=True)
+        whole.append((time.perf_counter() - t0) * 1e3)
+    out = {f"{name}_ms": ms / frames for name, ms in sorted(spent.items())}
+    out["tracker_stages_ms"] = sum(out[f"{n}_ms"] for n in (
+        "prep", "lk_track", "ransac", "occupancy_detect", "packaging",
+        "read_measurement"))
+    out["frame_ms"] = sum(whole) / frames
+    out["frame_min_max_ms"] = [min(whole), max(whole)]
+    out["active_slots"] = int(tracker.state.active.sum())
+    k = (warm + frames) * stride
+    img = render.render_frame(world, cam, rays, traj.p[k], R_all[k])
+    out["tracker_step_profile"] = device_busy(lambda: td.tracker_step(
+        cam, tp, tracker.state, img, float(traj.t[k]),
+        generator=tracker.generator))
+    out["render_profile"] = device_busy(lambda: render.render_frame(
+        world, cam, rays, traj.p[k], R_all[k]))
+    return out
+
+
 def main() -> None:
     ap = argparse.ArgumentParser(description=__doc__)
     ap.add_argument("--reps", type=int, default=3)
@@ -307,6 +413,7 @@ def main() -> None:
         "solver_B64": profile_solver(prob, cfg, 64, args.reps),
         "frame": profile_frame(args.reps),
         "host": profile_host(),
+        "image": profile_image(),
     }, indent=1))
 
 

@@ -2,9 +2,10 @@
 
 Counterpart of the window-problem half of
 `anticipated_vins_mono_tpu/utils/synthetic.py`: an analytic smooth
-trajectory, simulated 200 Hz IMU (specific force + body rates, optional
-noise/bias), and landmark observations with FOV masks, packed into the
-static-shape `WindowMeasurements`. All randomness comes from
+trajectory, the multi-lap circuit (`loop_trajectory`), simulated 200 Hz IMU
+(specific force + body rates, optional noise/bias), and landmark
+observations with FOV masks, packed into the static-shape
+`WindowMeasurements`. All randomness comes from
 `numpy.random.default_rng(seed)`, drawn in the same order as the JAX
 package draws it, so the same seed gives the same problem.
 """
@@ -99,6 +100,88 @@ def stopped_trajectory(duration: float, stop_after: float,
     acc[k:] = _quat_to_rot_np(q[k]).T @ -G_W
     gyr[k:] = 0.0
     return Trajectory(tr.t, p, q, v, acc, gyr)
+
+
+def loop_trajectory(duration: float, laps: float = 3.0, radius: float = 3.0,
+                    imu_rate: float = 200.0, bob: float = 0.25,
+                    wobble: float = 0.12, rate_mod: float = 0.4,
+                    rate_mod_freq: float = 2.0, wiggle: float = 0.0,
+                    wiggle_freq: float = 3.0) -> Trajectory:
+    """Multi-lap circuit with the camera (body +z) looking radially outward
+    — the loop-closure scenario: every lap revisits the same poses. Analytic
+    p/v/a; orientation is pure yaw following the base-circle tangent
+    (ω_body = (0, −θ̇, 0) with body y down).
+
+    The radius wobbles at 3θ and the height bobs at 2θ (functions of the lap
+    angle, so revisits stay exact) so that the body-frame accelerometer is
+    not constant: a pure circle at constant rate is a degenerate case for
+    visual-inertial alignment. `rate_mod` modulates the lap rate in time,
+    θ̇(t) = ω̄·(1 + m·cos(ω_m t)), for the same reason; `wiggle` adds a
+    time-domain radial wiggle u(t)·e_r(θ) that keeps the specific force
+    finite on slow laps.
+    """
+    dt = 1.0 / imu_rate
+    n = int(round(duration * imu_rate)) + 1
+    t = np.arange(n) * dt
+    th_rate = 2.0 * np.pi * laps / duration
+    if rate_mod != 0.0:
+        wm = rate_mod_freq
+        th = th_rate * (t + (rate_mod / wm) * np.sin(wm * t))
+        th_dot = th_rate * (1.0 + rate_mod * np.cos(wm * t))
+        th_ddot = -th_rate * rate_mod * wm * np.sin(wm * t)
+    else:
+        th = th_rate * t
+        th_dot = np.full(n, th_rate)
+        th_ddot = np.zeros(n)
+
+    a3 = wobble * radius
+    r = radius + a3 * np.sin(3 * th)
+    dr = 3 * a3 * np.cos(3 * th)          # d r / dθ
+    ddr = -9 * a3 * np.sin(3 * th)
+    cth, sth = np.cos(th), np.sin(th)
+    # v = p′(θ)·θ̇, a = p″(θ)·θ̇² + p′(θ)·θ̈
+    x, y = r * cth, r * sth
+    dx = dr * cth - r * sth
+    dy = dr * sth + r * cth
+    ddx = ddr * cth - 2 * dr * sth - r * cth
+    ddy = ddr * sth + 2 * dr * cth - r * sth
+    z = bob * np.sin(2 * th)
+    dz = 2 * bob * np.cos(2 * th)
+    ddz = -4 * bob * np.sin(2 * th)
+    p = np.stack([x, y, z], axis=-1)
+    dp = np.stack([dx, dy, dz], axis=-1)
+    ddp = np.stack([ddx, ddy, ddz], axis=-1)
+    v = dp * th_dot[:, None]
+    a = ddp * th_dot[:, None] ** 2 + dp * th_ddot[:, None]
+
+    if wiggle != 0.0:
+        #   p += u·e_r,  e_r = (cosθ, sinθ, 0),  ė_r = θ̇·e_t
+        #   v += u̇·e_r + u·θ̇·e_t
+        #   a += (ü − u·θ̇²)·e_r + (2·u̇·θ̇ + u·θ̈)·e_t
+        w = wiggle_freq
+        u = wiggle * np.sin(w * t)
+        du = wiggle * w * np.cos(w * t)
+        ddu = -wiggle * w * w * np.sin(w * t)
+        e_r = np.stack([cth, sth, np.zeros(n)], -1)
+        e_t = np.stack([-sth, cth, np.zeros(n)], -1)
+        p = p + u[:, None] * e_r
+        v = v + du[:, None] * e_r + (u * th_dot)[:, None] * e_t
+        a = a + (ddu - u * th_dot ** 2)[:, None] * e_r \
+            + (2 * du * th_dot + u * th_ddot)[:, None] * e_t
+
+    # R_wb(θ) = Rz(θ)·R0 with the camera (+z body) pointing radially outward
+    # and body y down: R0 = [[0,0,1],[−1,0,0],[0,−1,0]]
+    R0 = np.array([[0.0, 0.0, 1.0], [-1.0, 0.0, 0.0], [0.0, -1.0, 0.0]])
+    q0 = lie.rot_to_quat(_t64(R0))
+    half = 0.5 * th
+    c, s = np.cos(half), np.sin(half)
+    qz = np.stack([c, np.zeros_like(c), np.zeros_like(c), s], -1)
+    q = lie.quat_mul(_t64(qz), q0.expand(n, 4)).numpy()
+
+    gyr = np.stack([np.zeros(n), -th_dot, np.zeros(n)], axis=-1)
+    R = _quat_to_rot_np(q)
+    acc_body = np.einsum("nij,nj->ni", R.transpose(0, 2, 1), a - G_W)
+    return Trajectory(t, p, q, v, acc_body, gyr)
 
 
 def add_imu_noise(traj: Trajectory, noise: ImuNoise, rng: np.random.Generator,

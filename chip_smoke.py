@@ -2,20 +2,24 @@
 """Smoke run of the PyTorch/CUDA port on one NVIDIA GPU.
 
     python3 chip_smoke.py
+    python3 chip_smoke.py --image-seeds 0 1 2 3 4   # the image path's ATE
+                                                    # over tracker seeds only
 
 Drives the port's two main paths at the reference deployment's full size
 (10-keyframe window, 128 landmark slots, D = 178, 8 LM iterations; horizon
 13, Ω 126×126, 128 candidates, κ̄ = 30), float32, random data from a seed:
 one isolated frame of the anticipation selector feeding the sliding-window
 LM solve; the whole per-frame estimator step (`vio_scan`) over a simulated
-12 s sequence, about 110 frames, with both kernels on; and the host
+12 s sequence, its first 70 frames, with both kernels on; and the host
 estimator chain (`VioEstimator` with the `AttentionSelector`, fed by
 `run_sequence`: the README's path) over 60 frames of the same sequence with
 both kernels on, from the first ground-truth state and through the
 visual-inertial initialization, and its hand-off to the device step
-(`vio_init_from_host` → `vio_step`, float64). The same sequences again in
-float64 through `torch.linalg` are the yardstick for the runs' trajectory
-error.
+(`vio_init_from_host` → `vio_step`, float64); and the image path, a
+textured box world rendered at 752×480 on the card → the 128-slot device
+tracker → `VioNode` with the native aligner → `VioEstimator` with the
+`AttentionSelector`, over 60 frames. The same sequences again in float64
+through `torch.linalg` are the yardstick for the runs' trajectory error.
 It builds the two CUDA kernels from `anticipated_vins_mono_torch/csrc/`,
 holds each against its plain PyTorch version on the card (the logdet kernel
 through both of its loaders), replays each from a captured CUDA graph, reads
@@ -55,6 +59,38 @@ SEED = 0
 # card, about 10 % above it
 HOST_INIT_JAX_ATE_M = 0.1437879
 HOST_INIT_ATE_BOUND_M = 0.16
+# the image path over 60 frames of the box world along the circuit, from the
+# first ground-truth state: its ATE is chaotic in the rounding. The JAX
+# package's own image path on the CPU (`tests/image_reference.py ate`, same
+# images) reads, over tracker seeds 0-4 at 3 XLA threads, 0.0163-0.0279 m in
+# float32 and 0.0081-0.0859 m in float64, and for seed 0 at 1 thread 0.0059
+# m and 0.0132 m. Each run's bound is 1.5 times the largest reading at its
+# own precision
+IMAGE_JAX_ATE_M = {
+    "float32": {"threads_3": [0.0223187, 0.0232961, 0.0163353, 0.0216876,
+                              0.0279404], "threads_1": [0.0058985]},
+    "float64": {"threads_3": [0.0080932, 0.0107953, 0.0858913, 0.0428921,
+                              0.0355203], "threads_1": [0.0132233]}}
+IMAGE_ATE_BOUND_M = {"float32": 0.042, "float64": 0.13}
+IMAGE_FRAMES = 60
+# the `vio` phase's steps after the first full window, of the sequence's 110
+# (cut so that the whole script stays near half its time limit)
+VIO_STEPS = 60
+# LK on the card against LK on the CPU from the same tracker state, first
+# frames of the image path. The fixed-iteration Gauss-Newton is
+# ill-conditioned for some points on the flat steps of the posterized
+# texture, so any two roundings part there; the CPU counts them in each
+# frame: a point is rounding-sensitive where LK in float64 on the CPU parts
+# from LK in float32 on the CPU by more than LK_SENSITIVE_PX. No more points
+# than that count may part card vs CPU by more than LK_FAR_PX, none by more
+# than LK_MAX_PX, and the median stays within LK_MEDIAN_MAX_PX.
+# `tests/image_reference.py lk` (JAX and the port, both on the CPU, 752×480,
+# frames 1-7): 0, 3, 9, 10, 4, 3, 9 points over 0.05 px (4.33 px at most,
+# median ≤ 1.2e-4 px) against 11, 18, 22, 25, 16, 19, 23 sensitive ones
+LK_SENSITIVE_PX = 1e-3
+LK_FAR_PX = 0.05
+LK_MAX_PX = 5.0
+LK_MEDIAN_MAX_PX = 1e-3
 
 
 def emit(obj) -> None:
@@ -509,9 +545,11 @@ def phase_vio(hk):
     both = {"logdet_psd_batched": dep.KAPPA, "schur_solve_fused": dep.LM_ITERS}
     none = dict.fromkeys(both, 0)
     traj = analytic_trajectory(12.0)
-    f32 = drive_vio(hk, dep.vio_params(fused_schur=True), traj, torch.float32)
+    f32 = drive_vio(hk, dep.vio_params(fused_schur=True), traj, torch.float32,
+                    n_steps=VIO_STEPS)
     check_vio_counts("vio f32", f32, both)
-    f64 = drive_vio(hk, dep.vio_params(fused_schur=False), traj, torch.float64)
+    f64 = drive_vio(hk, dep.vio_params(fused_schur=False), traj,
+                    torch.float64, n_steps=VIO_STEPS)
     check_vio_counts("vio f64", f64, none)
     report = {"phase": "vio", "frames": f32["frames"],
               "window": dep.WINDOW, "slots": dep.MAX_FEATS,
@@ -736,11 +774,337 @@ def phase_host(hk, smi, n_frames=60):
     return f32["counts"]
 
 
+class TeeAligner:
+    """The native aligner with its plain version fed the same stream: each
+    frame's batch from both, their largest difference kept, the native
+    batch handed on."""
+
+    def __init__(self, native_aligner, plain):
+        self.native, self.plain, self.max_diff, self.batches = \
+            native_aligner, plain, 0.0, 0
+
+    def push_imu(self, t, acc, gyr):
+        self.native.push_imu(t, acc, gyr)
+        self.plain.push_imu(t, acc, gyr)
+
+    def frame_batch(self, ft, max_n=256):
+        a, b = self.native.frame_batch(ft, max_n), self.plain.frame_batch(ft)
+        if (a is None) != (b is None):
+            raise AssertionError(f"aligners disagree on waiting at t={ft}")
+        if a is not None:
+            self.batches += 1
+            for x, y in zip(a, b):
+                if np.shape(x) != np.shape(y):
+                    raise AssertionError(f"aligner batch shapes at t={ft}: "
+                                         f"{np.shape(x)} vs {np.shape(y)}")
+                if np.size(x):
+                    self.max_diff = max(self.max_diff,
+                                        float(np.abs(x - y).max()))
+        return a
+
+
+def drive_image(hk, dtype=torch.float32, n_frames=IMAGE_FRAMES,
+                tracker_seed=SEED):
+    """The image path on the card: the box world rendered at 752×480 through
+    the EuRoC camera, 10 Hz → `DeviceFeatureTracker` (128 slots) →
+    `VioNode` (native aligner, IMU pushed at 200 Hz and features at 10 Hz in
+    timestamp order) → `VioEstimator` with the "chol" `AttentionSelector`,
+    from the first ground-truth state: float32 with the fused Schur kernel
+    (the selector then scores with the logdet kernel), or float64 through
+    `torch.linalg`. `tracker_seed` seeds the tracker's RANSAC draws. The
+    launch counts are set to 0 just before the run and read just after."""
+    from anticipated_vins_mono_torch.models.anticipation import SelectorConfig
+    from anticipated_vins_mono_torch.models.estimator import VioEstimator
+    from anticipated_vins_mono_torch.models.feature_selector import \
+        AttentionSelector
+    from anticipated_vins_mono_torch.models.node import VioNode, _PyAligner
+    from anticipated_vins_mono_torch.models.tracker_device import \
+        DeviceFeatureTracker
+    from anticipated_vins_mono_torch.utils import deployment as dep
+    from anticipated_vins_mono_torch.utils import render
+    from anticipated_vins_mono_torch.utils.metrics import ate_rmse
+
+    traj, cam, world, rays, R_all, stride = dep.image_scene("cuda", SEED)
+    tracker = DeviceFeatureTracker(cam, dep.tracker_params(),
+                                   seed=tracker_seed)
+    sel = AttentionSelector(SelectorConfig(max_features=dep.KAPPA),
+                            max_candidates=dep.N_INPUT, impl="chol")
+    est = VioEstimator(dep.window_config(dtype == torch.float32),
+                       dtype=dtype, init_state={"p": traj.p[0],
+                                                "q": traj.q[0],
+                                                "v": traj.v[0]},
+                       selector=sel)
+    node = VioNode(est)
+    node.aligner = TeeAligner(node.aligner, _PyAligner())
+    frame_k = [f * stride for f in range(n_frames)]
+    ms = {"render": [], "tracker": [], "node_process_frame": []}
+    active, seen, new_ids_ok, solved_at = [], set(), True, []
+    torch.cuda.synchronize()
+    hk.reset_launch_counts()
+    f = 0
+    for k in range(frame_k[-1] + 1):
+        node.push_imu(traj.t[k], traj.acc_body[k], traj.gyr_body[k])
+        if k != frame_k[f]:
+            continue
+        t0 = time.perf_counter()
+        img = render.render_frame(world, cam, rays, traj.p[k], R_all[k])
+        torch.cuda.synchronize()
+        t1 = time.perf_counter()
+        feats = tracker.process(img, float(traj.t[k]))
+        t2 = time.perf_counter()
+        node.push_features(float(traj.t[k]), feats)
+        torch.cuda.synchronize()
+        t3 = time.perf_counter()
+        for name, a, b in (("render", t0, t1), ("tracker", t1, t2),
+                           ("node_process_frame", t2, t3)):
+            ms[name].append((b - a) * 1e3)
+        st = tracker.state
+        ids = st.ids[st.active].cpu().numpy()
+        new = set(ids.tolist()) - seen
+        if len(set(ids.tolist())) != len(ids) or (
+                new and seen and min(new) <= max(seen)):
+            new_ids_ok = False
+        seen |= new
+        active.append(len(feats))
+        solved_at.append(est.diag.solves)
+        f += 1
+        if f == n_frames:
+            break
+    counts = dict(hk.launch_counts)
+    tr = est.trajectory
+    est_t = np.array([x[0] for x in tr])
+    est_p = np.stack([x[1] for x in tr])
+    d = est.diag
+    # timed frames: after the first five solved frames
+    first = solved_at.index(min(s for s in solved_at if s >= 1)) + 5
+    split = {name: {"median": float(np.median(v[first:])),
+                    "min_max": [min(v[first:]), max(v[first:])]}
+             for name, v in ms.items()}
+    return {"frames": n_frames, "counts": counts, "solves": d.solves,
+            "failures": d.failures, "keyframes": d.keyframes,
+            "anticipate_calls": sel.n_anticipate,
+            "initialized": est.initialized,
+            "ate_rmse_m": float(ate_rmse(est_t, est_p, traj.t, traj.p)),
+            "newest_frame_observations":
+                int(est.db.mask[:, est.cfg.nf - 2].sum()),
+            "prior_rows": int((est.prior.J0.abs().sum(dim=1) > 0).sum()),
+            "prior_weight": float(est.prior.weight),
+            "active_per_frame": active, "ids_unique_and_monotone": new_ids_ok,
+            "aligner_batches": node.aligner.batches,
+            "aligner_native_vs_plain_max_abs": node.aligner.max_diff,
+            "ms_per_frame_after_5_solved": split,
+            "timed_frames": n_frames - first,
+            "tracker": tracker}
+
+
+def image_card_vs_cpu(n_frames=5):
+    """The first `n_frames` frames rendered and tracked on the card and on
+    the CPU. Render: the share of pixels within 1e-4. Tracker: frame 0's
+    detections exact; then each frame from the card tracker's state (copied
+    to the CPU for the CPU step), LK alone on both (`ok` exact, the
+    LK-tracked points held to `LK_*`, the rounding-sensitive ones counted
+    by LK in float64 on the CPU), and the whole step with the same
+    RANSAC draws: ids and active flags exact wherever the two RANSACs decide
+    alike; where one decision flips, each later stage from the same inputs
+    instead: RANSAC on the CPU's LK points (mask exact), top-up from the
+    CPU's mask (ids, active exact)."""
+    from anticipated_vins_mono_torch.models import frontend as fe
+    from anticipated_vins_mono_torch.models import tracker_device as td
+    from anticipated_vins_mono_torch.ops import cameras
+    from anticipated_vins_mono_torch.utils import convert
+    from anticipated_vins_mono_torch.utils import deployment as dep
+    from anticipated_vins_mono_torch.utils import render
+
+    scenes = {dev: dep.image_scene(dev, SEED) for dev in ("cuda", "cpu")}
+    traj, _, _, _, R_all, stride = scenes["cpu"]
+    cam_c, cam_p = scenes["cuda"][1], scenes["cpu"][1]
+    tp = dep.tracker_params()
+    gen = torch.Generator().manual_seed(SEED)
+    share, lk, devs, flips = 1.0, [], [], 0
+    state = None
+    for f in range(n_frames):
+        k = f * stride
+        imgs = {dev: render.render_frame(w, c, r, traj.p[k], R_all[k])
+                for dev, (_, c, w, r, _, _) in scenes.items()}
+        diff = (imgs["cuda"].cpu() - imgs["cpu"]).abs()
+        share = min(share, float((diff <= 1e-4).double().mean()))
+        img = imgs["cuda"]
+        t = float(traj.t[k])
+        if state is None:
+            state = td.tracker_init(cam_c, tp, img, t)
+            cpu0 = td.tracker_init(cam_p, tp, img.cpu(), t)
+            for a, b in ((state.ids, cpu0.ids), (state.active, cpu0.active),
+                         (state.pts, cpu0.pts)):
+                if not torch.equal(a.cpu(), b):
+                    raise AssertionError("image: tracker_init card vs CPU")
+            continue
+        st_p = convert.tracker_state_from_numpy(
+            convert.tracker_state_to_numpy(state), device="cpu")
+        eq_c, pyr_c = td._prep(img, tp.levels)
+        eq_p, pyr_p = td._prep(img.cpu(), tp.levels)
+        np_c, ok_c = fe.lk_track(state.pyr, pyr_c, state.pts,
+                                 state.active.float(), levels=tp.levels)
+        np_p, ok_p = fe.lk_track(st_p.pyr, pyr_p, st_p.pts,
+                                 st_p.active.float(), levels=tp.levels)
+        ok_p = ok_p & st_p.active
+        if not torch.equal((ok_c & state.active).cpu(), ok_p):
+            raise AssertionError(f"image: LK ok differs at frame {f}")
+        np_d, ok_d = fe.lk_track(
+            tuple(x.double() for x in st_p.pyr),
+            tuple(x.double() for x in pyr_p), st_p.pts.double(),
+            st_p.active.double(), levels=tp.levels)
+        sens = (((np_d - np_p).abs().amax(-1) > LK_SENSITIVE_PX)
+                | ~ok_d)[ok_p]
+        dev = (np_c.cpu() - np_p)[ok_p].abs().amax(-1).double()
+        devs.append(dev)
+        lk.append({"frame": f, "tracked": len(dev),
+                   "sensitive": int(sens.sum()),
+                   "over_0.05px": int((dev > LK_FAR_PX).sum()),
+                   "max_abs_px": float(dev.max())})
+        u = td.ransac_uniforms(tp.ransac_iters, tp.max_features, gen,
+                               device="cpu")
+        nxt_c, m_c = td.tracker_step(cam_c, tp, state, img, t, u=u.cuda())
+        nxt_p, m_p = td.tracker_step(cam_p, tp, st_p, img.cpu(), t, u=u)
+        if not all(torch.equal(a.cpu(), b)
+                   for a, b in ((m_c[0], m_p[0]), (m_c[4], m_p[4]))):
+            flips += 1
+            thr = tp.ransac_thresh_px / cam_p.fx
+            mask_p = td.ransac_essential_mask(
+                st_p.norm, cameras.lift_projective(cam_p, np_p)[:, :2],
+                ok_p, u, thresh=thr)
+            mask_c = td.ransac_essential_mask(
+                state.norm, cameras.lift_projective(
+                    cam_c, np_p.cuda())[:, :2], ok_p.cuda(), u.cuda(),
+                thresh=tp.ransac_thresh_px / cam_c.fx)
+            if not torch.equal(mask_c.cpu(), mask_p):
+                raise AssertionError(f"image: RANSAC differs at frame {f}")
+            _, top_c = td._top_up(cam_c, tp, state, eq_c, pyr_c, np_p.cuda(),
+                                  mask_p.cuda(), torch.tensor(
+                                      t, dtype=torch.float32, device="cuda"))
+            _, top_p = td._top_up(cam_p, tp, st_p, eq_p, pyr_p, np_p,
+                                  mask_p, torch.tensor(t, dtype=torch.float32))
+            if not (torch.equal(top_c[0].cpu(), top_p[0])
+                    and torch.equal(top_c[4].cpu(), top_p[4])):
+                raise AssertionError(f"image: top-up differs at frame {f}")
+        state = nxt_c
+    median = float(torch.cat(devs).median())
+    far = any(x["over_0.05px"] > x["sensitive"] for x in lk)
+    largest = max(x["max_abs_px"] for x in lk)
+    if share < 0.999 or flips > 1 or far or largest > LK_MAX_PX or \
+            median > LK_MEDIAN_MAX_PX:
+        raise AssertionError(
+            f"image card vs CPU: render pixels within 1e-4 {share}, RANSAC "
+            f"flips {flips}, LK per frame {lk}, median {median}")
+    return {"frames": n_frames, "render_share_within_1e-4": share,
+            "lk_per_frame": lk, "lk_median_abs_px": median,
+            "ransac_flips": flips,
+            "tolerance": f"render share >= 0.999 within 1e-4; frame 0's "
+                         f"detections, ids, active exact; LK ok exact; per "
+                         f"frame no more LK-tracked points over {LK_FAR_PX} "
+                         f"px than are rounding-sensitive (CPU float64 vs "
+                         f"float32 over {LK_SENSITIVE_PX} px), none over "
+                         f"{LK_MAX_PX} px, median <= {LK_MEDIAN_MAX_PX} px; "
+                         f"at most one RANSAC flip"}
+
+
+def check_image_run(tag, run, dtype):
+    from anticipated_vins_mono_torch.utils import deployment as dep
+    kernels = dtype == torch.float32
+    check_host_run(tag, run, dep.LM_ITERS if kernels else 0,
+                   dep.KAPPA if kernels else 0)
+    half = dep.N_INPUT // 2
+    if min(run["active_per_frame"][2:]) < half:
+        raise AssertionError(f"{tag}: active slots per frame "
+                             f"{run['active_per_frame']}, wanted >= {half}")
+    if not run["ids_unique_and_monotone"]:
+        raise AssertionError(f"{tag}: tracker ids not unique or not monotone")
+    bound = IMAGE_ATE_BOUND_M[str(dtype).split(".")[-1]]
+    if not run["ate_rmse_m"] < bound:
+        raise AssertionError(f"{tag}: ATE {run['ate_rmse_m']} m (bound "
+                             f"{bound} m)")
+    if run["aligner_batches"] < run["frames"] - 1 or \
+            run["aligner_native_vs_plain_max_abs"] > 1e-12:
+        raise AssertionError(
+            f"{tag}: native aligner vs plain: {run['aligner_batches']} "
+            f"batches, max diff {run['aligner_native_vs_plain_max_abs']}")
+
+
+def phase_image(hk, smi):
+    """The image path at full width on the card, float32 with both kernels
+    and float64 through `torch.linalg` on the same images and tracker draws,
+    their checks, the float32 run's split, and the card against the CPU on
+    the first frames."""
+    from anticipated_vins_mono_torch.models import tracker_device as td
+    from anticipated_vins_mono_torch.utils import deployment as dep
+    from anticipated_vins_mono_torch.utils import render
+    from anticipated_vins_mono_torch.utils.profile_slice import device_busy
+
+    run = drive_image(hk, torch.float32)
+    tracker = run.pop("tracker")
+    check_image_run("image f32", run, torch.float32)
+    run64 = drive_image(hk, torch.float64)
+    run64.pop("tracker")
+    check_image_run("image f64", run64, torch.float64)
+    # the tracker's device events and idle share over one more frame
+    traj, cam, world, rays, R_all, stride = dep.image_scene("cuda", SEED)
+    k = run["frames"] * stride
+    img = render.render_frame(world, cam, rays, traj.p[k], R_all[k])
+    state = tracker.state
+    prof = device_busy(lambda: td.tracker_step(
+        cam, tracker.params, state, img, float(traj.t[k]),
+        generator=tracker.generator))
+    vs_cpu = image_card_vs_cpu()
+    drop = ("active_per_frame", "ms_per_frame_after_5_solved", "timed_frames")
+    emit({"phase": "image", "frames": run["frames"], "width": cam.width,
+          "height": cam.height, "slots": dep.N_INPUT,
+          "min_dist": dep.TRACKER_MIN_DIST, "levels": dep.TRACKER_LEVELS,
+          "window": dep.WINDOW, "kappa": dep.KAPPA,
+          "f32_kernels": {k: v for k, v in run.items()
+                          if k != "active_per_frame"},
+          "f64_torch_linalg": {k: v for k, v in run64.items()
+                               if k not in drop},
+          "min_active_from_frame_2": min(run["active_per_frame"][2:]),
+          "ate_bound_m": IMAGE_ATE_BOUND_M,
+          "jax_cpu_ate_rmse_m_by_tracker_seed": IMAGE_JAX_ATE_M,
+          "tracker_step_profile": prof, "card_vs_cpu": vs_cpu,
+          "nvidia_smi": smi})
+    return run["counts"]
+
+
+def image_seed_sweep(seeds) -> int:
+    """`--image-seeds`: the image path alone, float32 with both kernels and
+    float64, once per tracker seed; one line per run with its ATE. Reads
+    how far the ATE spreads over the tracker's RANSAC draws, beside the JAX
+    package's spread on the CPU (`tests/image_reference.py ate`)."""
+    from anticipated_vins_mono_torch.ops import hopper_kernels as hk
+    hk.build_kernels()
+    ates = {"float32": [], "float64": []}
+    for seed in seeds:
+        for dtype in (torch.float32, torch.float64):
+            run = drive_image(hk, dtype, tracker_seed=seed)
+            run.pop("tracker")
+            name = str(dtype).split(".")[-1]
+            ates[name].append(run["ate_rmse_m"])
+            emit({"phase": "image_seed", "tracker_seed": seed,
+                  "dtype": name, "ate_rmse_m": run["ate_rmse_m"],
+                  "failures": run["failures"], "solves": run["solves"],
+                  "counts": run["counts"],
+                  "min_active_from_frame_2": min(run["active_per_frame"][2:]),
+                  "ms_per_frame_after_5_solved":
+                      run["ms_per_frame_after_5_solved"]})
+    emit({"phase": "image_seeds", "seeds": list(seeds), "ate_rmse_m": ates,
+          "jax_cpu_ate_rmse_m_by_tracker_seed": IMAGE_JAX_ATE_M,
+          "nvidia_smi": nvidia_smi_line()})
+    return 0
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke.py needs a CUDA device: "
               "torch.cuda.is_available() is False", file=sys.stderr)
         return 1
+    if len(sys.argv) > 2 and sys.argv[1] == "--image-seeds":
+        return image_seed_sweep([int(a) for a in sys.argv[2:]])
 
     from anticipated_vins_mono_torch.models import anticipation as ant
     from anticipated_vins_mono_torch.models.feature_selector import \
@@ -949,6 +1313,8 @@ def main() -> int:
     launches["vio"] = phase_vio(hk)
     # ------------------------------------------ the host estimator chain
     launches["host"] = phase_host(hk, smi)
+    # ---------------------------------------------- the image path, pixels in
+    launches["image"] = phase_image(hk, smi)
     for k in (logdet_k, schur_k):
         k["launches_by_path"] = {path: c[k["name"]]
                                  for path, c in launches.items()}

@@ -1,0 +1,224 @@
+"""Port vs JAX: the image front end (models/frontend.py), float32, CPU.
+
+The textures are those of `tests/test_frontend.py` (a 4×4-block random
+image, blurred once, 160×120) and a sub-pixel shift of it; the tracker runs
+on five frames of the textured box world rendered at 160×120 along the
+circuit of `tests/test_tracker_device.py`, 10 Hz.
+
+Tolerances (float32 on both sides, sums in another order): `clahe`,
+`build_pyramid`, `equalize` and `_bilinear` 1e-6; `gftt_response` 1e-5
+relative to its largest value; `detect_features` the same pixels and
+validity, scores 1e-5 relative; `lk_track` the same `ok`, points within
+1e-3 px. The host `FeatureTracker`: the same ids every frame, rays 1e-5,
+velocities 1e-3, probabilities 1e-5.
+"""
+
+import numpy as np
+import jax
+import jax.numpy as jnp
+import pytest
+import torch
+
+from anticipated_vins_mono_tpu.models import frontend as jfe
+from anticipated_vins_mono_tpu.ops import cameras as jcam
+from anticipated_vins_mono_tpu.ops import lie as jlie
+from anticipated_vins_mono_tpu.utils import render as jrender
+from anticipated_vins_mono_tpu.utils.synthetic import loop_trajectory
+from anticipated_vins_mono_torch.models import frontend as tfe
+from anticipated_vins_mono_torch.utils import convert
+
+torch.set_num_threads(1)
+
+
+def _texture(H=120, W=160, seed=0):
+    rng = np.random.default_rng(seed)
+    base = rng.random((H // 4, W // 4))
+    img = np.kron(base, np.ones((4, 4)))
+    return np.asarray(jfe._blur3(jnp.asarray(img, jnp.float32)))
+
+
+def _shifted(img, dx, dy):
+    """Subpixel shift via bilinear sampling."""
+    H, W = img.shape
+    yy, xx = np.meshgrid(np.arange(H), np.arange(W), indexing="ij")
+    pts = jnp.asarray(np.stack([xx - dx, yy - dy], -1).reshape(-1, 2),
+                      jnp.float32)
+    return np.asarray(jfe._bilinear(jnp.asarray(img, jnp.float32),
+                                    pts)).reshape(H, W)
+
+
+def _t(x):
+    return torch.tensor(np.asarray(x), device="cpu")
+
+
+def _close(out, ref, tol):
+    np.testing.assert_allclose(out.numpy(), np.asarray(ref), rtol=0,
+                               atol=tol)
+
+
+@pytest.fixture(scope="module")
+def rendered():
+    """Five 160×120 frames of the box world along the circuit, the JAX
+    renderer's pixels, and the camera."""
+    W, H = 160, 120
+    fx = 0.6 * W
+    cam = jcam.PinholeCamera.create(fx, fx, W / 2, H / 2, width=W, height=H)
+    traj = loop_trajectory(20.0, laps=2.0, radius=3.0)
+    world = jrender.make_box_world(traj.p, margin=5.0, seed=0)
+    rays = jrender.camera_rays(cam)
+    R_all = np.asarray(jlie.quat_to_rot(jnp.asarray(traj.q)))
+    ks = [0, 20, 40, 60, 80]
+    imgs = [jrender.render_frame(world, cam, rays, traj.p[k], R_all[k])
+            for k in ks]
+    return cam, imgs, [float(traj.t[k]) for k in ks]
+
+
+@pytest.mark.parametrize("seed,clip,tiles", [(0, 3.0, 8), (3, 3.0, 8),
+                                             (1, 4.0, 4), (2, 1.0, 5)])
+def test_clahe_equals_jax(seed, clip, tiles):
+    img = _texture(seed=seed)
+    ref = jfe.clahe(jnp.asarray(img), clip_limit=clip, tiles=tiles,
+                    impl="gather")
+    _close(tfe.clahe(_t(img), clip_limit=clip, tiles=tiles), ref, 1e-6)
+
+
+def test_clahe_odd_size_equals_jax():
+    img = _texture()[:117, :151]
+    _close(tfe.clahe(_t(img)), jfe.clahe(jnp.asarray(img), impl="gather"),
+           1e-6)
+
+
+@pytest.mark.parametrize("bins", [16, 64])
+def test_equalize_equals_jax(bins):
+    img = _texture(seed=1).copy()
+    img[0, :4] = [0.0, 1.0, 0.5, 0.25]     # values on bin edges
+    _close(tfe.equalize(_t(img), bins), jfe.equalize(jnp.asarray(img), bins),
+           1e-6)
+
+
+@pytest.mark.parametrize("levels", [3, 4])
+def test_build_pyramid_equals_jax(levels):
+    img = tfe.clahe(_t(_texture(seed=2)))
+    ref = jfe.build_pyramid(jnp.asarray(img.numpy()), levels)
+    out = tfe.build_pyramid(img, levels)
+    assert len(out) == len(ref) == levels
+    for o, r in zip(out, ref):
+        assert tuple(o.shape) == r.shape
+        _close(o, r, 1e-6)
+
+
+def test_gftt_response_equals_jax():
+    img = _texture(seed=3)
+    ref = np.asarray(jfe.gftt_response(jnp.asarray(img)))
+    _close(tfe.gftt_response(_t(img)), ref, 1e-5 * ref.max())
+
+
+@pytest.mark.parametrize("min_dist,occupied", [(16, False), (30, True),
+                                               (9, True), (10, False)])
+def test_detect_features_equals_jax(min_dist, occupied):
+    """Even windows pad asymmetrically ((k-1)//2 before, k//2 after), and
+    the zero scores of the padding slots come out in index order."""
+    img = _texture(seed=4)
+    occ = np.zeros_like(img)
+    if occupied:
+        occ[30:70, 40:100] = 1.0
+    uv, sc, val = jfe.detect_features(jnp.asarray(img), jnp.asarray(occ),
+                                      400, min_dist)
+    tuv, tsc, tval = tfe.detect_features(_t(img), _t(occ), 400, min_dist)
+    np.testing.assert_array_equal(tval.numpy(), np.asarray(val))
+    np.testing.assert_array_equal(tuv.numpy(), np.asarray(uv))
+    _close(tsc, sc, 1e-5 * float(np.max(sc)))
+    assert 5 < int(tval.sum()) < 400     # padding slots exercised
+
+
+def test_bilinear_equals_jax():
+    img = _texture(seed=5)
+    uv = np.random.default_rng(0).uniform(-3, 165, (300, 2)).astype(
+        np.float32)
+    _close(tfe._bilinear(_t(img), _t(uv)),
+           jfe._bilinear(jnp.asarray(img), jnp.asarray(uv)), 1e-6)
+
+
+@pytest.mark.parametrize("shift,levels", [((3.3, -2.1), 3), ((-1.7, 0.6), 4)])
+def test_lk_track_equals_jax_on_a_known_shift(shift, levels):
+    img = _texture()
+    img2 = _shifted(img, *shift)
+    rng = np.random.default_rng(1)
+    pts = np.concatenate([rng.uniform([20, 20], [140, 100], (12, 2)),
+                          [[1.0, 1.0], [158.0, 60.0]]]).astype(np.float32)
+    val = np.ones(len(pts), np.float32)
+    val[3] = 0.0
+    jp1 = tuple(jfe.build_pyramid(jnp.asarray(img), levels))
+    jp2 = tuple(jfe.build_pyramid(jnp.asarray(img2), levels))
+    ref_pts, ref_ok = jfe.lk_track(jp1, jp2, jnp.asarray(pts),
+                                   jnp.asarray(val), levels=levels,
+                                   impl="gather")
+    tp1 = tuple(tfe.build_pyramid(_t(img), levels))
+    tp2 = tuple(tfe.build_pyramid(_t(img2), levels))
+    out_pts, out_ok = tfe.lk_track(tp1, tp2, _t(pts), _t(val), levels=levels)
+    np.testing.assert_array_equal(out_ok.numpy(), np.asarray(ref_ok))
+    _close(out_pts, ref_pts, 1e-3)
+    ok = out_ok.numpy()
+    assert 8 <= ok.sum() < len(pts)
+    np.testing.assert_allclose(out_pts.numpy()[ok] - pts[ok],
+                               np.tile(shift, (ok.sum(), 1)), atol=0.25)
+
+
+def _carry(jt, tt):
+    """The JAX host tracker's state copied into the port's."""
+    tt.prev_pyr = None if jt.prev_pyr is None else tuple(
+        torch.tensor(np.asarray(x), device="cpu") for x in jt.prev_pyr)
+    for name in ("prev_pts", "ids", "life", "scores"):
+        setattr(tt, name, getattr(jt, name).copy())
+    tt.next_id, tt.prev_t = jt.next_id, jt.prev_t
+    tt.prev_norm = {k: v.copy() for k, v in jt.prev_norm.items()}
+
+
+def _trackers(cam):
+    params = dict(max_features=40, min_dist=10)
+    jt = jfe.FeatureTracker(cam, jfe.TrackerParams(**params))
+    tt = tfe.FeatureTracker(
+        convert.camera_from_numpy(jax.tree_util.tree_map(np.asarray, cam),
+                                  device="cpu"),
+        tfe.TrackerParams(**params))
+    return jt, tt
+
+
+def _same_measurements(out, ref, ray_tol):
+    assert sorted(out) == sorted(ref)
+    dev = 0.0
+    for fid, (ray, vel, prob) in ref.items():
+        np.testing.assert_allclose(out[fid][0], ray, atol=ray_tol, rtol=0)
+        np.testing.assert_allclose(out[fid][1], vel, atol=1e-3, rtol=0)
+        assert abs(out[fid][2] - prob) < 1e-5
+        dev = max(dev, float(np.abs(out[fid][0] - ray).max()))
+    return dev
+
+
+def test_host_feature_tracker_equals_jax(rendered):
+    """Both packages' host `FeatureTracker` (CLAHE on, RANSAC through each
+    package's `relative_pose_ransac`) over five rendered frames, the port
+    started from the JAX tracker's state before every frame."""
+    cam, imgs, ts = rendered
+    jt, tt = _trackers(cam)
+    prev, kept = set(), []
+    for img, t in zip(imgs, ts):
+        _carry(jt, tt)
+        ref = jt.process(img, t)
+        _same_measurements(tt.process(img, t), ref, 1e-5)
+        kept.append(len(set(ref) & prev))
+        prev = set(ref)
+    assert len(ref) >= 30 and min(kept[1:]) >= 10      # tracks persist
+
+
+def test_host_feature_tracker_free_running_stays_with_jax(rendered):
+    """The same five frames with each tracker on its own state: the ids
+    stay equal; the points part by rounding that LK amplifies from frame to
+    frame on the posterized texture (0.0104 px at the fourth frame here),
+    held to 0.05 px, the card-vs-CPU bound of `chip_smoke.py`."""
+    cam, imgs, ts = rendered
+    jt, tt = _trackers(cam)
+    fx = float(cam.fx)
+    for img, t in zip(imgs, ts):
+        _same_measurements(tt.process(img, t), jt.process(img, t),
+                           0.05 / fx)

@@ -4,6 +4,7 @@ to the CPU on their own."""
 import ast
 import pathlib
 
+import numpy as np
 import pytest
 import torch
 
@@ -50,7 +51,9 @@ def test_port_has_the_expected_modules_and_kernel_sources():
                  "models/anticipation.py", "models/feature_selector.py",
                  "models/estimator_device.py", "models/feature_db.py",
                  "models/initialization.py", "models/estimator.py",
-                 "models/pipeline.py",
+                 "models/pipeline.py", "models/frontend.py",
+                 "models/tracker_device.py", "models/node.py",
+                 "ops/cameras.py", "utils/render.py", "native/__init__.py",
                  "utils/synthetic.py", "utils/convert.py",
                  "utils/sequence.py", "utils/metrics.py",
                  "utils/profile_slice.py"):
@@ -66,6 +69,61 @@ def test_importing_the_port_builds_nothing():
     import anticipated_vins_mono_torch  # noqa: F401
     from anticipated_vins_mono_torch.ops import hopper_kernels as hk
     assert hk._libs == {} or torch.cuda.is_available()
+
+
+def test_native_source_is_the_jax_packages_whole():
+    """The port's C++ is its own copy of the JAX package's, code unchanged
+    (comments may differ), and the loader builds outside the source tree."""
+    from anticipated_vins_mono_torch import native
+    code = lambda p: [ln for ln in p.read_text().splitlines()
+                      if not ln.startswith("//")]
+    jax_src = ROOT / "anticipated_vins_mono_tpu/native/src/avm_native.cc"
+    assert code(native.SRC) == code(jax_src)
+    assert native.BUILD_DIR == ROOT / "build" / "native"
+
+
+def _unbuildable(monkeypatch, tmp_path, cxx):
+    """Point the native loader at compiler `cxx` and an empty build
+    directory under `tmp_path`, with nothing loaded yet."""
+    from anticipated_vins_mono_torch import native
+    monkeypatch.setattr(native, "CXX", str(cxx))
+    monkeypatch.setattr(native, "BUILD_DIR", tmp_path / "build")
+    monkeypatch.setattr(native, "_lib", None)
+    return native
+
+
+def test_native_loader_raises_when_the_compiler_is_missing(monkeypatch,
+                                                          tmp_path):
+    native = _unbuildable(monkeypatch, tmp_path, tmp_path / "no-such-g++")
+    with pytest.raises(RuntimeError, match="no-such-g"):
+        native.get_lib()
+    with pytest.raises(RuntimeError):
+        native.hamming_all_pairs(np.zeros((1, 4), np.uint64),
+                                 np.zeros((1, 4), np.uint64))
+
+
+def test_native_loader_raises_with_the_compilers_output(monkeypatch,
+                                                        tmp_path):
+    bad = tmp_path / "bad-cxx"
+    bad.write_text("#!/bin/sh\necho 'avm: this compiler refuses' >&2\n"
+                   "exit 3\n")
+    bad.chmod(0o755)
+    native = _unbuildable(monkeypatch, tmp_path, bad)
+    with pytest.raises(RuntimeError, match="this compiler refuses"):
+        native.MeasurementAligner()
+    assert not list((tmp_path / "build").glob("*.so"))
+
+
+def test_vio_node_with_native_raises_when_the_library_cannot_be_built(
+        monkeypatch, tmp_path):
+    from anticipated_vins_mono_torch.models.estimator import VioEstimator
+    from anticipated_vins_mono_torch.models.node import VioNode, _PyAligner
+    from anticipated_vins_mono_torch.ops.window import WindowConfig
+    _unbuildable(monkeypatch, tmp_path, tmp_path / "no-such-g++")
+    est = VioEstimator(WindowConfig(window=2, max_feats=4), device="cpu")
+    with pytest.raises(RuntimeError, match="native build failed"):
+        VioNode(est, use_native=True)
+    assert isinstance(VioNode(est, use_native=False).aligner, _PyAligner)
 
 
 def _no_card():
@@ -114,6 +172,20 @@ def test_device_select_raises_without_card():
                       t(3), q, t(3), t(3), t(3), t(3), t(3), t(3), q,
                       t(4, 3), t(4), t(4), t(4, 3), t(4), t(4),
                       t(4, 2), t(4), t(4))
+
+
+def test_image_path_entry_points_raise_without_card():
+    _no_card()
+    from anticipated_vins_mono_torch.models import tracker_device as td
+    from anticipated_vins_mono_torch.ops import cameras
+    from anticipated_vins_mono_torch.utils import render
+    with pytest.raises((RuntimeError, AssertionError)):
+        cameras.euroc_camera()
+    with pytest.raises((RuntimeError, AssertionError)):
+        render.make_box_world(np.zeros((2, 3)))
+    cam = cameras.euroc_camera(device="cpu")
+    tracker = td.DeviceFeatureTracker(cam)
+    assert tracker.generator.device.type == "cpu"
 
 
 def test_chip_smoke_refuses_to_run_without_card():
