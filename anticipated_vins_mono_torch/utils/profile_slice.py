@@ -11,7 +11,10 @@ marginalizations, both slides) and of one frame of the host estimator chain
 preintegration, triangulation, solve, marginalization and the numpy
 bookkeeping around them) and of one frame of the image path (render, CLAHE
 + pyramid, LK, RANSAC, occupancy + detection, packaging, the node's
-alignment and `process_frame`) at the reference deployment's full size
+alignment and `process_frame`) and of the JAX package's runners (the
+same `vio_step` split on the capstone runner's frame, with its 150-slot
+device tracker; the loop pass's `process_frame` and the loop node's stages)
+at the reference deployment's full size
 (`utils/deployment.py`), float32, with a host clock around work that ends in
 `torch.cuda.synchronize()`, and reads the device's busy share over one
 solve, one selection, one frame and one tracker step from
@@ -145,21 +148,14 @@ def profile_solver(prob, cfg, B: int, reps: int) -> dict:
     return out
 
 
-def profile_frame(reps: int, warm_frames: int = 15) -> dict:
-    """Per-stage host times of one `vio_step` on a steady state (the state
-    after `warm_frames` frames of the simulated sequence, prior built), each
-    stage on the inputs the step would hand it; both marginalizations and
-    both slides are timed on the same state, whichever the frame would
-    take."""
-    pr = dep.vio_params(fused_schur=True)
+def vio_step_stages(pr, st, pk, reps: int) -> dict:
+    """Per-stage host times of one `vio_step` from state `st` on the frame
+    inputs `pk` (ids, rays, velocities, probabilities, active, the padded
+    IMU), each stage on the inputs the step would hand it; both
+    marginalizations and both slides are timed on the same state, whichever
+    the frame would take."""
     cfg = pr.wcfg
     k = cfg.nf - 1
-    traj = analytic_trajectory((cfg.nf + warm_frames + 2) / 10.0)
-    _, packed = dep.vio_sequence(traj, torch.float32)
-    st = dep.vio_start(pr, traj, packed)
-    for pk in packed[k:k + warm_frames]:
-        st, out = ed.vio_step(pr, st, *pk)
-    pk = packed[k + warm_frames]
     ids, pts, vel, prob, active, dts, acc, gyr, acc0, gyr0 = pk
     with torch.no_grad():
         entered = ed._enter_frame(pr, st, k, dts, acc, gyr, acc0, gyr0)
@@ -172,8 +168,6 @@ def profile_frame(reps: int, warm_frames: int = 15) -> dict:
         one = lambda tree: tree_map(lambda x: x[None], tree)
         W = cfg.window
         out = {
-            "tracked": float(out["tracked"]),
-            "n_solved": int(out["n_solved"]),
             # which marginalization the profiled `vio_step` below takes
             "keyframe": bool(keyframe),
             "propagate_ms": host_ms(lambda: ed._propagate(
@@ -213,6 +207,119 @@ def profile_frame(reps: int, warm_frames: int = 15) -> dict:
     whole = lambda: ed.vio_step(pr, st, *pk)
     out["vio_step_ms"] = host_ms(whole, reps)
     out["vio_step_profile"] = device_busy(whole)
+    return out
+
+
+def profile_frame(reps: int, warm_frames: int = 15) -> dict:
+    """`vio_step_stages` on a steady state of the simulated sequence: the
+    state after `warm_frames` frames (prior built) and the next frame."""
+    pr = dep.vio_params(fused_schur=True)
+    k = pr.wcfg.nf - 1
+    traj = analytic_trajectory((pr.wcfg.nf + warm_frames + 2) / 10.0)
+    _, packed = dep.vio_sequence(traj, torch.float32)
+    st = dep.vio_start(pr, traj, packed)
+    for pk in packed[k:k + warm_frames]:
+        st, out = ed.vio_step(pr, st, *pk)
+    return {"tracked": float(out["tracked"]), "n_solved": int(out["n_solved"]),
+            **vio_step_stages(pr, st, packed[k + warm_frames], reps)}
+
+
+def profile_capstone(reps: int, warm_frames: int = 15) -> dict:
+    """`vio_step_stages` on the capstone runner's frame
+    (`utils/device_vio_bench`: the circuit rendered at 752×480, the
+    150-slot device tracker, the host warm-up and hand-off, κ̄ = 30 "chol",
+    float32, both kernels): the state after `warm_frames` device frames and
+    the tracker's next measurement; the tracker step's own time beside."""
+    from anticipated_vins_mono_torch.models import tracker_device as td
+    from anticipated_vins_mono_torch.utils import device_vio_bench as dvb
+    f32 = torch.float32
+    cam, traj, imgs, ts, imu = dvb.render_circuit(4.0, 752, 480, None,
+                                                  "cuda")
+    wcfg = win.WindowConfig(window=10, max_feats=128, iters=8,
+                            fused_schur=True)
+    tparams = td.TrackerDeviceParams(max_features=150)
+    tracker = td.DeviceFeatureTracker(cam, tparams)
+    est = hest.VioEstimator(wcfg, dtype=f32, device="cuda", init_state={
+        "p": traj.p[0], "q": traj.q[0], "v": traj.v[0]})
+    f = dvb.warm_up(est, tracker, imgs, ts, imu, 0, 10)
+    pr = ed.DeviceVioParams(wcfg=wcfg,
+                            sel_cfg=ant.SelectorConfig(max_features=30),
+                            sel_impl="chol")
+    (tst, st), outs, _ = dvb.run_device(
+        cam, tparams, pr, tracker.state, ed.vio_init_from_host(est), imgs,
+        ts, imu, f, f + warm_frames, f32, tracker.generator)
+    g = f + warm_frames
+    step = lambda: td.tracker_step(cam, tparams, tst, imgs[g], float(ts[g]),
+                                   generator=tracker.generator)
+    _, (ids, rays, vel, prob, active) = step()
+    pk = (ids, rays, vel, prob, active) + tuple(
+        torch.tensor(x[g], dtype=f32, device="cuda") for x in imu)
+    return {"tracker_step_ms": host_ms(step, reps),
+            "tracked_active": int(active.sum()),
+            "n_solved": int((st.solved > 0).sum()),
+            **vio_step_stages(pr, st, pk, reps)}
+
+
+def profile_loop(duration: float = 13.0) -> dict:
+    """Where a frame of the loop pass goes (`utils/loop_benchmark`'s second
+    pass over `duration` s of the circuit, float32, the Schur kernel at
+    F = 192): `process_frame`, and the node's stages at each keyframe it
+    sees (render, corners + BRIEF, retrieval, verification, PGO), each
+    between two synchronises; totals over the pass, and the node's share of
+    the pass."""
+    from anticipated_vins_mono_torch.models import loop_node as ln
+    from anticipated_vins_mono_torch.models import posegraph as pg
+    from anticipated_vins_mono_torch.utils import loop_benchmark as lb
+    spent, calls = defaultdict(float), defaultdict(int)
+
+    def timed(name, fn):
+        def run(*args, **kw):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            out = fn(*args, **kw)
+            torch.cuda.synchronize()
+            spent[name] += (time.perf_counter() - t0) * 1e3
+            calls[name] += 1
+            return out
+        return run
+
+    patched = [(hest.VioEstimator, "process_frame"),
+               (lb.render, "render_frame"),
+               (ln.LoopClosureNode, "on_keyframe"),
+               (ln.LoopClosureNode, "keyframe_features"),
+               (ln.LoopClosureNode, "_detect_loop"),
+               (ln.LoopClosureNode, "_verify"),
+               (pg.PoseGraph, "optimize")]
+    saved = [getattr(obj, name) for obj, name in patched]
+    for obj, name in patched:
+        setattr(obj, name, timed(name.lstrip("_"), getattr(obj, name)))
+    try:
+        t0 = time.perf_counter()
+        run = lb.run_loop_benchmark(duration=duration, device="cuda",
+                                    dtype=torch.float32, vio_pass=False)
+        wall = (time.perf_counter() - t0) * 1e3
+    finally:
+        for (obj, name), fn in zip(patched, saved):
+            setattr(obj, name, fn)
+    # one render per keyframe offered to the node; the renders before the
+    # pass build the landmark field
+    renders_in_pass = calls["on_keyframe"]
+    render_ms = spent["render_frame"] / max(calls["render_frame"], 1)
+    out = {f"{name}_total_ms": ms for name, ms in sorted(spent.items())}
+    out.update({f"{name}_calls": n for name, n in sorted(calls.items())})
+    out.update({
+        "frames": run["loop_pass_frames"], "keyframes": run["keyframes"],
+        "loops_accepted": run["loops_accepted"], "funnel": run["funnel"],
+        "wall_ms": wall,
+        "process_frame_ms_per_frame": spent["process_frame"] / max(
+            calls["process_frame"], 1),
+        "node_ms_per_keyframe": spent["on_keyframe"] / max(
+            calls["on_keyframe"], 1),
+        "render_ms_per_call": render_ms,
+        "node_share_of_pass": (spent["on_keyframe"]
+                               + render_ms * renders_in_pass)
+        / (spent["process_frame"] + spent["on_keyframe"]
+           + render_ms * renders_in_pass)})
     return out
 
 
@@ -414,6 +521,8 @@ def main() -> None:
         "frame": profile_frame(args.reps),
         "host": profile_host(),
         "image": profile_image(),
+        "capstone": profile_capstone(args.reps),
+        "loop": profile_loop(),
     }, indent=1))
 
 

@@ -184,6 +184,22 @@ def loop_trajectory(duration: float, laps: float = 3.0, radius: float = 3.0,
     return Trajectory(t, p, q, v, acc_body, gyr)
 
 
+def wall_landmarks(world_lo: np.ndarray, world_hi: np.ndarray, n: int,
+                   rng: np.random.Generator) -> np.ndarray:
+    """Landmarks on the box-world walls (`utils.render.BoxWorld` AABB):
+    points a camera anywhere inside sees at consistent surface texture, as
+    cross-visit BRIEF matching needs. The JAX package's draws, in its
+    order."""
+    lo, hi = np.asarray(world_lo, float), np.asarray(world_hi, float)
+    face = rng.integers(0, 6, size=n)
+    u = rng.uniform(size=(n, 3))
+    pts = lo + u * (hi - lo)
+    axis = face % 3
+    side = face // 3
+    pts[np.arange(n), axis] = np.where(side == 0, lo[axis], hi[axis])
+    return pts
+
+
 def add_imu_noise(traj: Trajectory, noise: ImuNoise, rng: np.random.Generator,
                   ba: np.ndarray, bg: np.ndarray, imu_rate: float = 200.0
                   ) -> Trajectory:

@@ -4,22 +4,36 @@
     python3 chip_smoke.py
     python3 chip_smoke.py --image-seeds 0 1 2 3 4   # the image path's ATE
                                                     # over tracker seeds only
+    python3 chip_smoke.py --capstone-seeds 0 1 2 3 4   # the same for the
+                                                       # capstone runner,
+                                                       # three precisions
+    python3 chip_smoke.py --capstone-seeds float32_host_control 0 1 2 3 4
+    python3 chip_smoke.py --capstone-step-parity 0   # vio_step card vs CPU
 
-Drives the port's two main paths at the reference deployment's full size
+Drives the port's main paths at the reference deployment's full size
 (10-keyframe window, 128 landmark slots, D = 178, 8 LM iterations; horizon
 13, Ω 126×126, 128 candidates, κ̄ = 30), float32, random data from a seed:
 one isolated frame of the anticipation selector feeding the sliding-window
 LM solve; the whole per-frame estimator step (`vio_scan`) over a simulated
-12 s sequence, its first 70 frames, with both kernels on; and the host
+12 s sequence, its first 50 frames, with both kernels on; and the host
 estimator chain (`VioEstimator` with the `AttentionSelector`, fed by
-`run_sequence`: the README's path) over 60 frames of the same sequence with
-both kernels on, from the first ground-truth state and through the
-visual-inertial initialization, and its hand-off to the device step
-(`vio_init_from_host` → `vio_step`, float64); and the image path, a
-textured box world rendered at 752×480 on the card → the 128-slot device
-tracker → `VioNode` with the native aligner → `VioEstimator` with the
-`AttentionSelector`, over 60 frames. The same sequences again in float64
-through `torch.linalg` are the yardstick for the runs' trajectory error.
+`run_sequence`: the README's path) over 40 frames of the same sequence with
+both kernels on, from the first ground-truth state, and 60 frames through
+the visual-inertial initialization, and its hand-off to the device step
+(`vio_init_from_host` → `vio_step`, float64); the image path, a textured
+box world rendered at 752×480 on the card → the 128-slot device tracker →
+`VioNode` with the native aligner → `VioEstimator` with the
+`AttentionSelector`, over 60 frames; loop closure: BRIEF, direct retrieval
+against 200 rendered keyframes and `pgo_solve` at 256 keyframes, card
+against CPU, then `utils/loop_benchmark`'s VIO + `LoopClosureNode` pass over
+14 s of the circuit (192 landmark slots: the Schur kernel at F = 192); the
+JAX package's capstone runner `utils/device_vio_bench` (render → host
+warm-up → hand-off → `tracker_step` → `vio_step` per frame, 8 s of the
+circuit) and its streaming runner `utils/streaming_bench` (tracker →
+selector → solve, 20 frames, fused and staged). The same sequences again in
+float64 through `torch.linalg` are the yardstick for the runs' trajectory
+error.
+
 It builds the two CUDA kernels from `anticipated_vins_mono_torch/csrc/`,
 holds each against its plain PyTorch version on the card (the logdet kernel
 through both of its loaders), replays each from a captured CUDA graph, reads
@@ -33,7 +47,8 @@ Near the end one line holds `{"kernels": [...]}` (per kernel: its source,
 the TPU kernel it replaces, launches on the main paths, error against the
 plain version, its time, the plain version's, a library call's, the least
 time the card could take, and the phase split; for the Schur kernel also its
-time with the cluster split switched off); then come the card's name and
+time with the cluster split switched off, and the same numbers at F = 192);
+then come the card's name and
 power limit as `nvidia-smi` gives them, and the last line
 `{"ok": true, "device": {...}}`.
 """
@@ -74,8 +89,42 @@ IMAGE_JAX_ATE_M = {
 IMAGE_ATE_BOUND_M = {"float32": 0.042, "float64": 0.13}
 IMAGE_FRAMES = 60
 # the `vio` phase's steps after the first full window, of the sequence's 110
-# (cut so that the whole script stays near half its time limit)
-VIO_STEPS = 60
+# (cut to 60 and then to 40 so that the whole script, with the loop-closure
+# and runner phases, stays near half its time limit)
+VIO_STEPS = 40
+# the `host` phase's float32 run with both kernels and its float64 yardstick
+# (cut from 60 frames for the same reason; the real initialization keeps 60,
+# the length of its JAX reference)
+HOST_FRAMES = 40
+HOST_INIT_FRAMES = 60
+# the loop pass: `utils/loop_benchmark.run_loop_benchmark`'s second pass
+# (VIO + `LoopClosureNode`) over the shortest circuit on which the JAX
+# package on the CPU accepts a loop for every seed 0-4: 14 s (at 12 s seed 4
+# closes none; the first loop comes at frames 114-117 of the pass, after the
+# node's 50-keyframe exclusion window). `tests/loop_reference.py loop
+# --duration 14 --dtype float32` reads ATE with loop closure (`ate_loop`)
+# 0.1213784, 0.2705524, 0.1519496, 1.2210846, 0.3337587 m over seeds 0-4 at
+# 2 XLA threads (0.1296096, 0.2789261, 0.1545004, 0.8663493, 0.3232320 m at
+# 1), 2-4 loops each; the bound is 1.5 times the largest. Each accepted
+# edge against the ground truth (1 thread): at most 0.3283, 0.198, 0.077,
+# 0.3363, 0.1262 m and 2.462, 1.479, 0.464, 3.121, 0.916° of yaw; the PGO's
+# path over the raw VIO path of the same keyframes (`ate_loop_path` /
+# `ate_path_vio`): 0.6377, 0.7977, 1.1880, 0.8933, 0.6945. The bounds on
+# them are 1.5 times the largest as well
+LOOP_DURATION_S = 14.0
+LOOP_JAX_ATE_M = [0.1213784, 0.2705524, 0.1519496, 1.2210846, 0.3337587]
+LOOP_ATE_BOUND_M = 1.83
+LOOP_EDGE_T_ERR_BOUND_M = 0.5045
+LOOP_EDGE_YAW_ERR_BOUND_DEG = 4.682
+LOOP_PATH_RATIO_BOUND = 1.782
+# the capstone runner (`utils/device_vio_bench.main`, κ̄ = 30, float32) over
+# 8 s of the circuit: `tests/loop_reference.py capstone --duration 8` reads
+# the JAX package's ATE 0.0314503, 0.0067043, 0.0064159, 0.0050708,
+# 0.0126056 m over tracker seeds 0-4; the bound is 1.5 times the largest
+CAPSTONE_DURATION_S = 8.0
+CAPSTONE_JAX_ATE_M = [0.0314503, 0.0067043, 0.0064159, 0.0050708, 0.0126056]
+CAPSTONE_ATE_BOUND_M = 0.047
+STREAM_FRAMES = 20
 # LK on the card against LK on the CPU from the same tracker state, first
 # frames of the image path. The fixed-iteration Gauss-Newton is
 # ill-conditioned for some points on the flat steps of the posterized
@@ -226,6 +275,101 @@ def schur_bound(B, D, F):
     return bound(B * floats * 4, B * flops)
 
 
+def logdet_affine_bound(F, N):
+    """Ω and each Δ_f read once, p read once, one float written per f; the
+    loader's F·N² multiply-adds and N³/3 flop per matrix."""
+    return bound((N * N + F * N * N + 2 * F) * 4,
+                 F * (2 * N * N + N ** 3 / 3))
+
+
+def schur_agrees(hk, batch) -> float:
+    """The Schur kernel against its plain version on `batch` at the TPU
+    test's tolerances (dx atol 2e-4·max(scale,1) rtol 2e-3; d_rho atol/rtol
+    2e-3; pred rtol 2e-3): both run the same f32 elimination, the sums in
+    another order. Returns the largest difference of dx and d_rho."""
+    dx, dr, pred = hk.schur_solve_fused(*batch)
+    dx0, dr0, pred0 = hk.schur_solve_fused_plain(*batch)
+    torch.cuda.synchronize()
+    scale = max(float(dx0.abs().max()), 1.0)
+    err = max(float((dx - dx0).abs().max()), float((dr - dr0).abs().max()))
+    if not (torch.isfinite(dx).all()
+            and torch.allclose(dx, dx0, atol=2e-4 * scale, rtol=2e-3)
+            and torch.allclose(dr, dr0, atol=2e-3, rtol=2e-3)
+            and torch.allclose(pred, pred0, rtol=2e-3, atol=0.0)):
+        B, D = batch[0].shape[:2]
+        raise AssertionError(
+            f"fused Schur kernel disagrees at {(B, D, batch[2].shape[1])}: "
+            f"{err}, pred {pred.tolist()[:3]} vs {pred0.tolist()[:3]}")
+    return err
+
+
+def affine_agrees(hk, Om, Deltas, scale) -> float:
+    """The fused loader, logdet(Om + scale·Deltas), against its plain version
+    (the unblocked elimination of the materialised sum) at atol 2e-3; both
+    loaders must hand the factorization the same bits."""
+    summed = Om[None] + scale[:, None, None] * Deltas
+    aff = hk.logdet_psd_affine_batched(Om, Deltas, scale)
+    err = float((aff - hk.logdet_psd_batched_plain(summed)).abs().max())
+    if not (torch.isfinite(aff).all() and err <= 2e-3
+            and torch.equal(aff, hk.logdet_psd_batched(summed))):
+        raise AssertionError(f"fused logdet loader disagrees at "
+                             f"{tuple(Deltas.shape)}: {err}")
+    return err
+
+
+# The shapes at which the main paths call each kernel entry point, recorded
+# by `record_called_shapes` and checked against the plain versions at the
+# end of the run by `check_called_shapes`, so that no path runs a kernel at
+# a shape the script did not hold against its plain version.
+CALLED_SHAPES = {}
+
+
+def record_called_shapes(hk):
+    """Wrap the three kernel entry points of `hk` so that each call on the
+    card records its shape (the wrappers' launch counts are untouched).
+    Returns a function that puts the wrappers back."""
+    shape_of = {
+        "logdet_psd_batched": lambda M, *_: tuple(M.shape),
+        "logdet_psd_affine_batched": lambda Om, Deltas, *_: tuple(
+            Deltas.shape),
+        "schur_solve_fused": lambda H, g, H_lp, *_: (
+            H.shape[0], H.shape[1], H_lp.shape[1]),
+    }
+    saved = {name: getattr(hk, name) for name in shape_of}
+    for name, shape in shape_of.items():
+        CALLED_SHAPES[name] = set()
+
+        def recorded(*args, _fn=saved[name], _name=name, _shape=shape, **kw):
+            if args[0].is_cuda:
+                CALLED_SHAPES[_name].add(_shape(*args))
+            return _fn(*args, **kw)
+        setattr(hk, name, recorded)
+    return lambda: [setattr(hk, n, f) for n, f in saved.items()]
+
+
+def check_called_shapes(hk):
+    """Each kernel against its plain version, on seeded inputs, at every
+    shape the main paths called it with, at the tolerances above. Runs after
+    the launch counts are read: these launches count nowhere."""
+    from anticipated_vins_mono_torch.utils.synthetic import (
+        psd_batch, schur_batch)
+    plain, fused, schur = [], [], []
+    for B, N, _ in sorted(CALLED_SHAPES["logdet_psd_batched"]):
+        M = psd_batch(B, N, seed=B + N)
+        out, ref = hk.logdet_psd_batched(M), hk.logdet_psd_batched_plain(M)
+        err = float((out - ref).abs().max())
+        if not (torch.isfinite(out).all() and err <= 2e-3):
+            raise AssertionError(f"logdet kernel disagrees at {(B, N)}: {err}")
+        plain.append({"B": B, "N": N, "max_abs_err": err})
+    for F, N, _ in sorted(CALLED_SHAPES["logdet_psd_affine_batched"]):
+        fused.append({"F": F, "N": N, "max_abs_err": affine_agrees(
+            hk, *affine_problem(F, N, seed=F))})
+    for B, D, F in sorted(CALLED_SHAPES["schur_solve_fused"]):
+        schur.append({"B": B, "D": D, "F": F, "max_abs_err": schur_agrees(
+            hk, schur_batch(B, D, F))})
+    return {"plain_loader": plain, "fused_loader": fused}, schur
+
+
 # ----------------------------------------------------------------------------
 # Phases
 # ----------------------------------------------------------------------------
@@ -296,13 +440,8 @@ def phase_kernels(hk):
     # the fused loader, logdet(Om + scale·Deltas), against its plain version
     # (the unblocked elimination of the materialised sum), same tolerance
     Om, Deltas, scale = affine_problem(128, 126, seed=9)
-    summed = Om[None] + scale[:, None, None] * Deltas
+    logdet_err = max(logdet_err, affine_agrees(hk, Om, Deltas, scale))
     aff = hk.logdet_psd_affine_batched(Om, Deltas, scale)
-    aff_err = float((aff - hk.logdet_psd_batched_plain(summed)).abs().max())
-    # both loaders hand the factorization the same bits
-    if not (aff_err <= 2e-3 and torch.equal(aff, hk.logdet_psd_batched(summed))):
-        raise AssertionError(f"fused logdet loader disagrees: {aff_err}")
-    logdet_err = max(logdet_err, aff_err)
 
     M = psd_batch(128, 126, seed=126)
     lib_logdet = lambda: 2 * torch.log(torch.diagonal(
@@ -347,22 +486,9 @@ def phase_kernels(hk):
     # --- fused Schur: against the plain version at the TPU test's tolerances
     # (dx atol 2e-4·max(scale,1) rtol 2e-3; d_rho atol/rtol 2e-3; pred rtol
     # 2e-3): both run the same f32 elimination, the sums in another order
-    schur_err = 0.0
-    for B, D, F in ((64, 178, 128), (1, 178, 128), (3, 178, 192)):
-        batch = schur_batch(B, D, F)
-        dx, dr, pred = hk.schur_solve_fused(*batch)
-        dx0, dr0, pred0 = hk.schur_solve_fused_plain(*batch)
-        torch.cuda.synchronize()
-        scale = max(float(dx0.abs().max()), 1.0)
-        ok = (torch.allclose(dx, dx0, atol=2e-4 * scale, rtol=2e-3)
-              and torch.allclose(dr, dr0, atol=2e-3, rtol=2e-3)
-              and torch.allclose(pred, pred0, rtol=2e-3, atol=0.0))
-        err = max(float((dx - dx0).abs().max()), float((dr - dr0).abs().max()))
-        if not ok:
-            raise AssertionError(
-                f"fused Schur kernel disagrees at {(B, D, F)}: {err}, pred "
-                f"{pred.tolist()[:3]} vs {pred0.tolist()[:3]}")
-        schur_err = max(schur_err, err)
+    schur_err = max(schur_agrees(hk, schur_batch(B, D, F))
+                    for B, D, F in ((64, 178, 128), (1, 178, 128),
+                                    (3, 178, 192)))
 
     b64, b1 = schur_batch(64, 178, 128), schur_batch(1, 178, 128)
     lib = schur_library_f32(*b64)
@@ -428,8 +554,68 @@ def phase_kernels(hk):
             no_cluster_b1["load"]["share"]
             + no_cluster_b1["schur_product"]["share"],
     }
+    schur["f192"] = schur_f192(hk)
+    logdet["capstone_batch"] = logdet_capstone_batch(hk)
     emit({"phase": "kernel_check", "checked": [logdet, schur]})
     return logdet, schur
+
+
+def logdet_capstone_batch(hk):
+    """The fused loader at the capstone runner's batch: its selector scores
+    every tracker slot (`device_vio_bench.main`'s `n_feats`, 150) in each
+    greedy round, so the kernel runs at [n_feats, 126, 126] there. Against
+    its plain version at atol 2e-3, replayed from a CUDA graph, timed."""
+    import inspect
+    from anticipated_vins_mono_torch.utils import device_vio_bench as dvb
+    F = inspect.signature(dvb.main).parameters["n_feats"].default
+    N = 126
+    Om, Deltas, scale = affine_problem(F, N, seed=F)
+    err = affine_agrees(hk, Om, Deltas, scale)
+    run = lambda: hk.logdet_psd_affine_batched(Om, Deltas, scale)
+    if not torch.equal(graph_replay(run), run()):
+        raise AssertionError(f"fused logdet loader at F = {F}: graph replay "
+                             f"differs from eager")
+    summed = lambda: Om[None] + scale[:, None, None] * Deltas
+    b_ms, b_by = logdet_affine_bound(F, N)
+    report = {"shape": {"F": F, "N": N}, "tolerance": "atol 2e-3",
+              "max_abs_err": err, "ms": kernel_ms(run),
+              "plain_ms": cuda_ms(
+                  lambda: hk.logdet_psd_batched_plain(summed()), 3, 1),
+              "bound_ms": b_ms, "bound_by": b_by,
+              "library_ms": cuda_ms(lambda: 2 * torch.log(torch.diagonal(
+                  torch.linalg.cholesky(summed()), dim1=-2, dim2=-1)).sum(-1),
+                  20)}
+    emit({"phase": "logdet_capstone_batch", **report})
+    return report
+
+
+def schur_f192(hk):
+    """The Schur kernel at the loop pass's landmark width, F = 192 (D = 178,
+    B = 1; 192 is already a multiple of the 32-row stage, so the padded
+    layout is the largest the main paths use): against its plain version at
+    the F = 128 bounds, replayed from a CUDA graph, timed."""
+    from anticipated_vins_mono_torch.utils.synthetic import schur_batch
+    D, F = 178, 192
+    batch = schur_batch(1, D, F)
+    err = schur_agrees(hk, batch)
+    eager = hk.schur_solve_fused(*batch)
+    replayed = graph_replay(lambda: hk.schur_solve_fused(*batch))
+    if not all(torch.equal(a, b) for a, b in zip(replayed, eager)):
+        raise AssertionError("Schur kernel at F = 192: graph replay differs "
+                             "from eager")
+    b_ms, b_by = schur_bound(1, D, F)
+    report = {"shape": {"B": 1, "D": D, "F": F},
+              "smem_bytes": hk.schur_smem_bytes(D, F),
+              "smem_limit_bytes": hk.MAX_SMEM_BYTES,
+              "cluster_ctas_per_scenario": hk.schur_cluster_size(1),
+              "max_abs_err": err,
+              "ms": kernel_ms(lambda: hk.schur_solve_fused(*batch)),
+              "plain_ms": cuda_ms(lambda: hk.schur_solve_fused_plain(*batch),
+                                  2, 1),
+              "bound_ms": b_ms, "bound_by": b_by,
+              "library_ms": cuda_ms(lambda: schur_library_f32(*batch), 20)}
+    emit({"phase": "schur_f192", **report})
+    return report
 
 
 def select_scored_by(hk, select, scorer):
@@ -734,7 +920,7 @@ def drive_handoff(n_steps=14):
             "vio_step_ms_median": float(np.median(step_ms))}
 
 
-def phase_host(hk, smi, n_frames=60):
+def phase_host(hk, smi, n_frames=HOST_FRAMES, init_frames=HOST_INIT_FRAMES):
     """The host estimator chain at full width: float32 with both kernels,
     the same in float64 through `torch.linalg` (the yardstick), the real
     initialization chain, and the hand-off to the per-frame device step."""
@@ -752,7 +938,7 @@ def phase_host(hk, smi, n_frames=60):
     # window, float64, the selector scoring through torch.linalg. The JAX
     # package on the CPU initializes this sequence at frame 10 (0-based: the
     # first full window) and ends 60 frames at HOST_INIT_JAX_ATE_M
-    init = drive_host(hk, torch.float64, False, n_frames, oracle=False)
+    init = drive_host(hk, torch.float64, False, init_frames, oracle=False)
     check_host_run("host init", init, 0, 0)
     if init["init_frame"] != dep.WINDOW \
             or not init["ate_rmse_m"] < HOST_INIT_ATE_BOUND_M:
@@ -760,7 +946,8 @@ def phase_host(hk, smi, n_frames=60):
             f"host init: initialized at frame {init['init_frame']}, ATE "
             f"{init['ate_rmse_m']} m (bound {HOST_INIT_ATE_BOUND_M} m)")
     handoff = drive_handoff()
-    emit({"phase": "host", "frames": n_frames, "window": dep.WINDOW,
+    emit({"phase": "host", "frames": n_frames, "init_frames": init_frames,
+          "window": dep.WINDOW,
           "slots": dep.MAX_FEATS, "inputs": dep.N_INPUT, "kappa": dep.KAPPA,
           "launches_per_solve_and_anticipate_call": {
               "schur_solve_fused": dep.LM_ITERS,
@@ -1071,6 +1258,241 @@ def phase_image(hk, smi):
     return run["counts"]
 
 
+# ----------------------------------------------------------------------------
+# Loop closure and the runners
+# ----------------------------------------------------------------------------
+
+
+def drifting_circuit_graph(device, n: int = 250, K: int = 256):
+    """A pose graph of `n` keyframes on a 3-lap circuit whose VIO poses drift
+    (2 mm and 0.05° of yaw per keyframe), with a verified loop edge (the
+    ground-truth relative pose) from each keyframe of laps 2-3 to its lap-1
+    twin every fifth keyframe; capacity K. The solve runs on `device`."""
+    from anticipated_vins_mono_torch.models import posegraph as pg
+    from anticipated_vins_mono_torch.models.initialization import _lie
+    from anticipated_vins_mono_torch.ops import lie
+
+    graph = pg.PoseGraph(pg.PGOConfig(max_kf=K, max_loops=64, iters=5),
+                         device=device)
+    per_lap = n // 3
+    th = 2 * np.pi * np.arange(n) / per_lap
+    true_p = np.stack([3 * np.cos(th), 3 * np.sin(th), 0.2 * np.sin(2 * th)],
+                      -1)
+    true_yaw = np.degrees(th) % 360.0 - 180.0
+    drift_p = true_p + np.arange(n)[:, None] * [0.002, -0.001, 0.0005]
+    drift_yaw = true_yaw + 0.05 * np.arange(n)
+    for k in range(n):
+        q = _lie(lambda y: lie.rot_to_quat(lie.ypr_to_rot(y)),
+                 [drift_yaw[k], 2.0, -1.0])
+        hint = None
+        if k >= per_lap and k % 5 == 0:
+            i = k % per_lap
+            R_i = _lie(lie.ypr_to_rot, [true_yaw[i], 2.0, -1.0])
+            rel_yaw = (true_yaw[k] - true_yaw[i] + 180.0) % 360.0 - 180.0
+            hint = (i, R_i.T @ (true_p[k] - true_p[i]), rel_yaw)
+        graph.add_keyframe(drift_p[k], q, loop_hint=hint, t=0.5 * k)
+    return graph
+
+
+def loop_retrieval_and_pgo():
+    """Retrieval and PGO at full size, the card against the port's plain CPU
+    run: BRIEF at 300 corners of a 752×480 frame (bits equal but where the
+    CPU's two blurred samples are equal to rounding), direct retrieval of one
+    keyframe's descriptors against 200 others rendered along 100 s of the
+    circuit (scores exact), and `pgo_solve` at K = 256 in float64 (1e-8)."""
+    from anticipated_vins_mono_torch.models import frontend as fe
+    from anticipated_vins_mono_torch.models import posegraph as pg
+    from anticipated_vins_mono_torch.utils import deployment as dep
+    from anticipated_vins_mono_torch.utils import placerec_eval as pe
+    from anticipated_vins_mono_torch.utils import render
+
+    traj, cam, world, rays, R_all, stride = dep.image_scene("cuda", SEED)
+    img = render.render_frame(world, cam, rays, traj.p[0], R_all[0])
+    uv, _s, valid = fe.detect_features(img, torch.zeros_like(img), 300,
+                                       min_dist=8)
+    uv = uv[valid]
+    d_card = pg.brief_descriptors(img, uv).cpu()
+    d_cpu = pg.brief_descriptors(img.cpu(), uv.cpu())
+    sm = fe._blur3(fe._blur3(img.cpu()))
+    pa, pb = (torch.tensor(x) for x in pg._brief_pattern())
+    gap = (fe._bilinear(sm, uv.cpu()[:, None] + pa[None])
+           - fe._bilinear(sm, uv.cpu()[:, None] + pb[None])).abs()
+    flips = d_card != d_cpu
+    if bool(flips.any()) and float(gap[flips].max()) > 1e-6:
+        raise AssertionError(f"BRIEF card vs CPU: {int(flips.sum())} bits "
+                             f"differ, one where the samples part by "
+                             f"{float(gap[flips].max())}")
+
+    t0 = time.perf_counter()
+    desc, off, _pos, _view = pe.build_keyframe_data(100.0, 10.0, seed=SEED,
+                                                    device="cuda")
+    build_s = time.perf_counter() - t0
+    K = len(off) - 2                  # the database: all but the last
+    if K < 200 or off[K] < 200 * 250:
+        raise AssertionError(f"retrieval database {K} keyframes, {off[K]} "
+                             f"descriptors")
+    db_card = torch.tensor(desc, device="cuda")
+    query = desc[off[K]:]
+    q_card = torch.tensor(query, device="cuda")
+    retrieve = lambda: pg.direct_similarities(db_card[:off[K]], off[:K + 1],
+                                              q_card, ham_thresh=16)
+    s_card = retrieve()
+    t0 = time.perf_counter()
+    s_cpu = pg.direct_similarities(desc[:off[K]], off[:K + 1], query,
+                                   ham_thresh=16, device="cpu")
+    retrieval_cpu_ms = (time.perf_counter() - t0) * 1e3
+    if not np.array_equal(s_card, s_cpu):
+        raise AssertionError(f"retrieval card vs CPU: "
+                             f"{float(np.abs(s_card - s_cpu).max())}")
+
+    g_card, g_cpu = drifting_circuit_graph("cuda"), drifting_circuit_graph(
+        "cpu")
+    t0 = time.perf_counter()
+    g_card.optimize()
+    torch.cuda.synchronize()
+    pgo_card_ms = (time.perf_counter() - t0) * 1e3
+    t0 = time.perf_counter()
+    g_cpu.optimize()
+    pgo_cpu_ms = (time.perf_counter() - t0) * 1e3
+    dpos = float(np.abs(g_card.pos - g_cpu.pos).max())
+    dyaw = float(np.abs(g_card.yaw - g_cpu.yaw).max())
+    if dpos > 1e-8 or dyaw > 1e-8 or g_card.cfg.max_kf != 256:
+        raise AssertionError(f"pgo_solve card vs CPU: pos {dpos}, yaw {dyaw}")
+    return {"brief_points": int(len(uv)),
+            "brief_bits_card_vs_cpu_differ": int(flips.sum()),
+            "retrieval_keyframes": K, "retrieval_descriptors": int(off[K]),
+            "query_descriptors": int(len(query)),
+            "retrieval_scores_equal": True,
+            "keyframe_data_build_s": build_s,
+            "retrieval_ms": cuda_ms(retrieve, 10, 1),
+            "retrieval_cpu_ms": retrieval_cpu_ms,
+            "pgo": {"keyframes": g_card.n, "capacity": g_card.cfg.max_kf,
+                    "loop_edges": g_card.n_loops,
+                    "iters": g_card.cfg.iters, "max_abs_dpos_m": dpos,
+                    "max_abs_dyaw_deg": dyaw, "card_ms": pgo_card_ms,
+                    "cpu_ms": pgo_cpu_ms},
+            "tolerance": "BRIEF bits equal where the samples part by more "
+                         "than 1e-6; scores exact; PGO 1e-8"}
+
+
+def phase_loop(hk, smi):
+    """Loop closure on the card: retrieval and PGO at full size against the
+    CPU, then one VIO + loop pass (`run_loop_benchmark`'s second pass, float32
+    with the Schur kernel at F = 192) over LOOP_DURATION_S of the circuit."""
+    from anticipated_vins_mono_torch.utils import loop_benchmark as lb
+
+    full = loop_retrieval_and_pgo()
+    torch.cuda.synchronize()
+    hk.reset_launch_counts()
+    t0 = time.perf_counter()
+    run = lb.run_loop_benchmark(duration=LOOP_DURATION_S, device="cuda",
+                                dtype=torch.float32, vio_pass=False)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    counts = dict(hk.launch_counts)
+    want = {"logdet_psd_batched": 0, "schur_solve_fused": 8 * run["solves"]}
+    if counts != want:
+        raise AssertionError(f"loop pass launched {counts}, wanted {want}")
+    # every accepted edge near the ground truth's relative pose (a broken
+    # verification), and the PGO's path no worse than the bound allows
+    # against the raw VIO path of the same keyframes (a broken PGO)
+    t_err = max(abs(e["t_err_m"]) for e in run["edges"]) if run["edges"] \
+        else float("nan")
+    yaw_err = max(abs(e["yaw_err_deg"]) for e in run["edges"]) \
+        if run["edges"] else float("nan")
+    path_ratio = run["ate_loop_path"] / run["ate_path_vio"]
+    if not (run["loops_accepted"] >= 1 and run["corrected_path_finite"]
+            and run["relo_after_first_loop_frame"] is not None
+            and np.isfinite(run["ate_loop"])
+            and run["ate_loop"] < LOOP_ATE_BOUND_M
+            and t_err <= LOOP_EDGE_T_ERR_BOUND_M
+            and yaw_err <= LOOP_EDGE_YAW_ERR_BOUND_DEG
+            and path_ratio <= LOOP_PATH_RATIO_BOUND):
+        raise AssertionError(
+            f"loop pass: {run['loops_accepted']} loops, relo after frame "
+            f"{run['relo_after_first_loop_frame']}, finite "
+            f"{run['corrected_path_finite']}, ATE {run['ate_loop']} m "
+            f"(bound {LOOP_ATE_BOUND_M} m), edge errors {t_err} m, "
+            f"{yaw_err}° (bounds {LOOP_EDGE_T_ERR_BOUND_M} m, "
+            f"{LOOP_EDGE_YAW_ERR_BOUND_DEG}°), path / raw VIO path "
+            f"{path_ratio} (bound {LOOP_PATH_RATIO_BOUND}), funnel "
+            f"{run['funnel']}")
+    emit({"phase": "loop", "retrieval_pgo_card_vs_cpu": full,
+          "pass": {k: run[k] for k in (
+              "duration_s", "loop_pass_frames", "landmarks", "keyframes",
+              "loops_accepted", "first_loop_frame",
+              "relo_after_first_loop_frame", "funnel", "ate_loop",
+              "ate_loop_path", "ate_path_vio", "path_keyframes",
+              "vio_failures", "solves",
+              "edges", "node_ms_per_keyframe", "dtype")},
+          "seconds": wall, "ms_per_frame": wall / run["loop_pass_frames"] * 1e3,
+          "launches": counts,
+          "ate_bound_m": LOOP_ATE_BOUND_M,
+          "jax_cpu_ate_loop_m_by_seed": LOOP_JAX_ATE_M,
+          "edge_err_max": {"t_m": t_err, "yaw_deg": yaw_err},
+          "edge_err_bounds": {"t_m": LOOP_EDGE_T_ERR_BOUND_M,
+                              "yaw_deg": LOOP_EDGE_YAW_ERR_BOUND_DEG},
+          "path_over_raw_vio_path": path_ratio,
+          "path_ratio_bound": LOOP_PATH_RATIO_BOUND, "nvidia_smi": smi})
+    return counts
+
+
+def phase_capstone(hk, smi):
+    """The capstone runner at full width: render the circuit, warm the host
+    estimator up on the device tracker, hand off, then `tracker_step` →
+    `vio_step` per frame, float32 with both kernels (κ̄ = 30, "chol")."""
+    from anticipated_vins_mono_torch.utils import device_vio_bench as dvb
+
+    torch.cuda.synchronize()
+    hk.reset_launch_counts()
+    rows = dvb.main(duration=CAPSTONE_DURATION_S, kappa=30,
+                    dtype_str="float32", sel_impl="chol", device="cuda")
+    torch.cuda.synchronize()
+    counts = dict(hk.launch_counts)
+    n = rows["n_frames_device"]
+    # the warm-up's host window solves launch the Schur kernel as well
+    want = {"logdet_psd_batched": 30 * n,
+            "schur_solve_fused": 8 * (n + rows["host_solves"])}
+    if counts != want:
+        raise AssertionError(f"capstone launched {counts}, wanted {want}")
+    if rows["fail_flags"] or not rows["ate_rmse_m"] < CAPSTONE_ATE_BOUND_M:
+        raise AssertionError(f"capstone: {rows['fail_flags']} fail flags, ATE "
+                             f"{rows['ate_rmse_m']} m (bound "
+                             f"{CAPSTONE_ATE_BOUND_M} m)")
+    emit({"phase": "capstone", **rows, "launches": counts,
+          "launches_per_device_frame": {"logdet_psd_batched": 30,
+                                        "schur_solve_fused": 8},
+          "ate_bound_m": CAPSTONE_ATE_BOUND_M,
+          "jax_cpu_ate_rmse_m_by_tracker_seed": CAPSTONE_JAX_ATE_M,
+          "nvidia_smi": smi})
+    return counts
+
+
+def phase_stream(hk, smi):
+    """The streaming runner at full width over STREAM_FRAMES frames: tracker
+    → selector ("chol", κ̄ = 30) → the flagship solve (float32, the Schur
+    kernel), fused and staged."""
+    from anticipated_vins_mono_torch.utils import streaming_bench as sb
+
+    torch.cuda.synchronize()
+    hk.reset_launch_counts()
+    rows = sb.main(n_frames=STREAM_FRAMES, sel_impl="chol", device="cuda")
+    torch.cuda.synchronize()
+    counts = dict(hk.launch_counts)
+    # selector + solve calls: the warm-up frame, the fused run, the
+    # per-frame-synchronised run (one more untimed frame) and the staged run
+    calls = 1 + rows["n_frames"] + 1 + 2 * rows["staged_frames"]
+    want = {"logdet_psd_batched": 30 * calls, "schur_solve_fused": 8 * calls}
+    if counts != want:
+        raise AssertionError(f"stream launched {counts}, wanted {want}")
+    if not (np.isfinite(rows["cost_final_mean"])
+            and rows["selected_per_frame_mean"] == 30.0):
+        raise AssertionError(f"stream: {rows}")
+    emit({"phase": "stream", **rows, "launches": counts,
+          "selector_solver_calls": calls, "nvidia_smi": smi})
+    return counts
+
+
 def image_seed_sweep(seeds) -> int:
     """`--image-seeds`: the image path alone, float32 with both kernels and
     float64, once per tracker seed; one line per run with its ATE. Reads
@@ -1098,6 +1520,123 @@ def image_seed_sweep(seeds) -> int:
     return 0
 
 
+# `--capstone-seeds`: the capstone runner's window solve three ways — the
+# `capstone` phase's (float32, the Schur kernel), float32 with the float64
+# Schur path (the JAX runner's default, `pallas_schur=False`), and float64
+# — and, when named, its `host_control` mode (the host estimator with the
+# `AttentionSelector` on the same tracker measurements, float32, kernels on)
+CAPSTONE_VARIANTS = {"float32_schur_kernel": ("float32", None, False),
+                     "float32_f64_schur": ("float32", False, False),
+                     "float64": ("float64", None, False),
+                     "float32_host_control": ("float32", None, True)}
+CAPSTONE_DEFAULT_VARIANTS = ("float32_schur_kernel", "float32_f64_schur",
+                             "float64")
+
+
+def capstone_seed_sweep(args) -> int:
+    """`--capstone-seeds [VARIANT ...] SEED ...`: the capstone runner alone,
+    as the `capstone` phase runs it and in the other CAPSTONE_VARIANTS (the
+    default three unless variants are named), once per tracker seed (the
+    seed picks the tracker's RANSAC draws and nothing else); one line per
+    run with its ATE. Reads how far the ATE spreads, beside the JAX
+    package's spread on the CPU (`tests/loop_reference.py capstone`)."""
+    from anticipated_vins_mono_torch.ops import hopper_kernels as hk
+    from anticipated_vins_mono_torch.utils import device_vio_bench as dvb
+    seeds = [int(a) for a in args if a.isdigit()]
+    names = [a for a in args if not a.isdigit()] or CAPSTONE_DEFAULT_VARIANTS
+    hk.build_kernels()
+    ates = {name: [] for name in names}
+    for name in names:
+        dtype_str, fused_schur, host_control = CAPSTONE_VARIANTS[name]
+        for seed in seeds:
+            rows = dvb.main(duration=CAPSTONE_DURATION_S, kappa=30,
+                            dtype_str=dtype_str, sel_impl="chol",
+                            device="cuda", tracker_seed=seed,
+                            fused_schur=fused_schur,
+                            host_control=host_control)
+            ates[name].append(rows["ate_rmse_m"])
+            emit({"phase": "capstone_seed", "variant": name,
+                  "tracker_seed": seed, **{k: rows[k] for k in (
+                      "ate_rmse_m", "fail_flags", "failures", "handoff_frame",
+                      "n_frames_device", "keyframe_fraction",
+                      "device_ms_per_frame", "host_ms_per_frame",
+                      "tracker_ms_per_frame", "vio_step_ms_per_frame")
+                      if k in rows}})
+    emit({"phase": "capstone_seeds", "seeds": list(seeds), "ate_rmse_m": ates,
+          "jax_cpu_ate_rmse_m_by_tracker_seed": CAPSTONE_JAX_ATE_M,
+          "nvidia_smi": nvidia_smi_line()})
+    return 0
+
+
+def capstone_step_parity(seed: int) -> int:
+    """`--capstone-step-parity SEED`: the capstone runner's protocol in
+    float64 (752×480, κ̄ = 30 "chol", no kernel), and at every device frame
+    `vio_step` twice from the same state and the same tracker measurements:
+    on the card and on the CPU. One line per frame with how far the two
+    steps part; the card's step is the one carried on. The CPU's
+    `torch.linalg.eigh` (MKL) does not converge on some of these
+    marginalization matrices, so on the CPU it is numpy's LAPACK here."""
+    from anticipated_vins_mono_torch.models import anticipation as ant
+    from anticipated_vins_mono_torch.models import estimator_device as ed
+    from anticipated_vins_mono_torch.models import tracker_device as td
+    from anticipated_vins_mono_torch.models.estimator import VioEstimator
+    from anticipated_vins_mono_torch.ops.window import WindowConfig
+    from anticipated_vins_mono_torch.utils import convert
+    from anticipated_vins_mono_torch.utils import device_vio_bench as dvb
+
+    eigh = torch.linalg.eigh
+
+    def eigh_lapack_on_cpu(A, UPLO="L"):
+        if A.is_cuda:
+            return eigh(A, UPLO=UPLO)
+        w, V = np.linalg.eigh(A.numpy(), UPLO=UPLO)
+        return torch.return_types.linalg_eigh(
+            (torch.from_numpy(w), torch.from_numpy(V)))
+
+    f64 = torch.float64
+    cam, traj, imgs, ts, imu = dvb.render_circuit(CAPSTONE_DURATION_S, 752,
+                                                  480, None, "cuda")
+    wcfg = WindowConfig(window=10, max_feats=128, iters=8, accum="f64")
+    tparams = td.TrackerDeviceParams(max_features=150)
+    tracker = td.DeviceFeatureTracker(cam, tparams, seed=seed)
+    est = VioEstimator(wcfg, dtype=f64, device="cuda", init_state={
+        "p": traj.p[0], "q": traj.q[0], "v": traj.v[0]})
+    f = dvb.warm_up(est, tracker, imgs, ts, imu, 0, 10)
+    vst = ed.vio_init_from_host(est)
+    pr = ed.DeviceVioParams(wcfg=wcfg, sel_impl="chol",
+                            sel_cfg=ant.SelectorConfig(max_features=30))
+    tst, worst = tracker.state, {"dp": 0.0, "dwin": 0.0, "ids_differ": 0}
+    torch.linalg.eigh = eigh_lapack_on_cpu
+    try:
+        for g in range(f, len(ts)):
+            tst, (ids, rays, vel, prob, active) = td.tracker_step(
+                cam, tparams, tst, imgs[g], float(ts[g]),
+                generator=tracker.generator)
+            frame = [ids, rays.to(f64), vel.to(f64), prob.to(f64), active] \
+                + [torch.tensor(x[g], dtype=f64) for x in imu]
+            on_cpu = convert.device_vio_state_from_numpy(
+                convert.device_vio_state_to_numpy(vst), "cpu")
+            vst, out = ed.vio_step(pr, vst, *[x.cuda() for x in frame],
+                                   device="cuda")
+            cst, cout = ed.vio_step(pr, on_cpu, *[x.cpu() for x in frame],
+                                    device="cpu")
+            row = {"frame": g,
+                   "dp": float((out["p"].cpu() - cout["p"]).abs().max()),
+                   "dwin": float((vst.p.cpu() - cst.p).abs().max()),
+                   "ids_differ": int((vst.ids.cpu() != cst.ids).sum()),
+                   "keyframe": [int(out["keyframe"]), int(cout["keyframe"])],
+                   "fail": [int(out["fail"]), int(cout["fail"])]}
+            for k in worst:
+                worst[k] = max(worst[k], row[k])
+            emit({"phase": "capstone_step", **row})
+    finally:
+        torch.linalg.eigh = eigh
+    emit({"phase": "capstone_step_parity", "tracker_seed": seed,
+          "handoff_frame": f, "max": worst,
+          "nvidia_smi": nvidia_smi_line()})
+    return 0
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke.py needs a CUDA device: "
@@ -1105,6 +1644,10 @@ def main() -> int:
         return 1
     if len(sys.argv) > 2 and sys.argv[1] == "--image-seeds":
         return image_seed_sweep([int(a) for a in sys.argv[2:]])
+    if len(sys.argv) > 2 and sys.argv[1] == "--capstone-seeds":
+        return capstone_seed_sweep(sys.argv[2:])
+    if len(sys.argv) > 2 and sys.argv[1] == "--capstone-step-parity":
+        return capstone_step_parity(int(sys.argv[2]))
 
     from anticipated_vins_mono_torch.models import anticipation as ant
     from anticipated_vins_mono_torch.models.feature_selector import \
@@ -1123,6 +1666,7 @@ def main() -> int:
           "torch": torch.__version__, "cuda": torch.version.cuda})
 
     logdet_k, schur_k = phase_kernels(hk)
+    restore_wrappers = record_called_shapes(hk)
 
     # ------------------------------------------------------------ main path
     cfg = window_config(fused_schur=True)
@@ -1315,12 +1859,29 @@ def main() -> int:
     launches["host"] = phase_host(hk, smi)
     # ---------------------------------------------- the image path, pixels in
     launches["image"] = phase_image(hk, smi)
+    # -------------------- loop closure and the JAX package's capstone runners
+    launches["loop"] = phase_loop(hk, smi)
+    launches["capstone"] = phase_capstone(hk, smi)
+    launches["stream"] = phase_stream(hk, smi)
+    # the loop pass has no selector: it runs the Schur kernel only
+    runs_on = {"logdet_psd_batched": set(launches) - {"loop"},
+               "schur_solve_fused": set(launches)}
     for k in (logdet_k, schur_k):
         k["launches_by_path"] = {path: c[k["name"]]
                                  for path, c in launches.items()}
-        if min(k["launches_by_path"].values()) < 1:
+        if min(k["launches_by_path"][p] for p in runs_on[k["name"]]) < 1:
             raise AssertionError(f"{k['name']}: a main path never launched it")
         k["launches"] = sum(k["launches_by_path"].values())
+    restore_wrappers()
+    logdet_k["called_shapes"], schur_k["called_shapes"] = \
+        check_called_shapes(hk)
+    logdet_k["max_abs_err"] = max(
+        [logdet_k["max_abs_err"], logdet_k["capstone_batch"]["max_abs_err"]]
+        + [c["max_abs_err"] for loader in logdet_k["called_shapes"].values()
+           for c in loader])
+    schur_k["max_abs_err"] = max(
+        [schur_k["max_abs_err"], schur_k["f192"]["max_abs_err"]]
+        + [c["max_abs_err"] for c in schur_k["called_shapes"]])
 
     emit({"kernels": [logdet_k, schur_k]})
     emit({"phase": "done", "seconds": round(time.perf_counter() - t_start, 1)})

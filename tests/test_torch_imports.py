@@ -56,7 +56,10 @@ def test_port_has_the_expected_modules_and_kernel_sources():
                  "ops/cameras.py", "utils/render.py", "native/__init__.py",
                  "utils/synthetic.py", "utils/convert.py",
                  "utils/sequence.py", "utils/metrics.py",
-                 "utils/profile_slice.py"):
+                 "utils/profile_slice.py", "models/posegraph.py",
+                 "models/loop_node.py", "utils/loop_benchmark.py",
+                 "utils/placerec_eval.py", "utils/device_vio_bench.py",
+                 "utils/streaming_bench.py"):
         assert need in names
     from anticipated_vins_mono_torch.ops import hopper_kernels as hk
     for src in hk.KERNEL_SOURCES.values():
@@ -186,6 +189,34 @@ def test_image_path_entry_points_raise_without_card():
     cam = cameras.euroc_camera(device="cpu")
     tracker = td.DeviceFeatureTracker(cam)
     assert tracker.generator.device.type == "cpu"
+
+
+def test_loop_closure_entry_points_raise_without_card():
+    """The pose graph's solve, the loop node, the retrieval and the four
+    runners default to the card: without one they raise."""
+    _no_card()
+    from anticipated_vins_mono_torch.models import posegraph as pg
+    from anticipated_vins_mono_torch.models.loop_node import LoopClosureNode
+    from anticipated_vins_mono_torch.ops import cameras
+    from anticipated_vins_mono_torch.utils import (
+        device_vio_bench, loop_benchmark, placerec_eval, streaming_bench)
+    cam = cameras.euroc_camera(device="cpu")
+
+    def optimize():
+        graph, q = pg.PoseGraph(), np.array([1.0, 0, 0, 0])
+        graph.add_keyframe(np.zeros(3), q)
+        graph.add_keyframe(np.ones(3), q, loop_hint=(0, np.zeros(3), 0.0))
+        graph.optimize()
+
+    for make in (optimize, lambda: LoopClosureNode(cam=cam),
+                 lambda: pg.direct_similarities(np.zeros((2, 256)), [0, 2],
+                                                np.zeros((1, 256))),
+                 lambda: loop_benchmark.run_loop_benchmark(duration=0.5),
+                 lambda: device_vio_bench.main(duration=0.5),
+                 lambda: streaming_bench.main(n_frames=1),
+                 lambda: placerec_eval.build_keyframe_data(duration=0.5)):
+        with pytest.raises((RuntimeError, AssertionError)):
+            make()
 
 
 def test_chip_smoke_refuses_to_run_without_card():
