@@ -401,6 +401,18 @@ def schur_smem_bytes(D: int, F: int) -> int:
     return floats * 4
 
 
+def schur_work(D: int, F: int):
+    """(floats moved, floating-point operations) of one scenario of the
+    fused Schur solve: inputs H, g, H_lp, h_ll, g_l, lam read once, dx,
+    d_rho, pred written once; symmetric Schur product F·D·(D+1) flop,
+    factorization D³/3, two triangular solves 2D², g_red and
+    back-substitution 4FD. The elementwise work (landmark inverses, damping,
+    scaling, the predicted reduction) is left out."""
+    floats = D * D + D + F * D + 2 * F + 1 + D + F + 1
+    flops = F * D * (D + 1) + D ** 3 / 3 + 2 * D * D + 4 * F * D
+    return floats, flops
+
+
 def schur_cluster_size(batch: int) -> int:
     """Thread blocks the Schur kernel spends on one scenario of a batch: a
     cluster of 8, 4, 2 or 1, the widest of which the card holds `batch` at

@@ -224,6 +224,32 @@ def sample_landmarks(traj: Trajectory, n: int, rng: np.random.Generator,
     return traj.p[idx] + np.einsum("nij,nj->ni", R, dirs * depth[:, None])
 
 
+# a EuRoC-like start stamp [ns] for `write_euroc_csv`
+EUROC_T0_NS = 1403636579758555392
+
+
+def write_euroc_csv(path: str, traj: Trajectory,
+                    bg=(0.002, -0.001, 0.0015), ba=(0.03, -0.02, 0.01)) -> None:
+    """Write `traj`'s states as a EuRoC `state_groundtruth_estimate0` CSV
+    (timestamp [ns], p, q wxyz, v, bg, ba; one header line), with constant
+    gyro / accelerometer biases `bg` / `ba`: the layout
+    `utils.euroc.load_gt_csv` reads, for runs without the EuRoC files."""
+    ns = EUROC_T0_NS + np.round(np.asarray(traj.t) * 1e9).astype(np.int64)
+    n = len(ns)
+    cols = np.concatenate([traj.p, traj.q, traj.v, np.tile(bg, (n, 1)),
+                           np.tile(ba, (n, 1))], axis=1)
+    with open(path, "w") as f:
+        f.write("#timestamp, p_RS_R_x [m], p_RS_R_y [m], p_RS_R_z [m], "
+                "q_RS_w [], q_RS_x [], q_RS_y [], q_RS_z [], "
+                "v_RS_R_x [m s^-1], v_RS_R_y [m s^-1], v_RS_R_z [m s^-1], "
+                "b_w_RS_S_x [rad s^-1], b_w_RS_S_y [rad s^-1], "
+                "b_w_RS_S_z [rad s^-1], b_a_RS_S_x [m s^-2], "
+                "b_a_RS_S_y [m s^-2], b_a_RS_S_z [m s^-2]\n")
+        for k in range(n):
+            f.write(f"{ns[k]}," + ",".join(repr(float(x)) for x in cols[k])
+                    + "\n")
+
+
 class WindowProblem(NamedTuple):
     gt: WindowState
     init: WindowState

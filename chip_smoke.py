@@ -9,6 +9,9 @@
                                                        # three precisions
     python3 chip_smoke.py --capstone-seeds float32_host_control 0 1 2 3 4
     python3 chip_smoke.py --capstone-step-parity 0   # vio_step card vs CPU
+    python3 chip_smoke.py --euroc-runners   # run_benchmark and
+                                            # run_image_benchmark over the
+                                            # `euroc` phase's written CSV
 
 Drives the port's main paths at the reference deployment's full size
 (10-keyframe window, 128 landmark slots, D = 178, 8 LM iterations; horizon
@@ -32,7 +35,12 @@ warm-up → hand-off → `tracker_step` → `vio_step` per frame, 8 s of the
 circuit) and its streaming runner `utils/streaming_bench` (tracker →
 selector → solve, 20 frames, fused and staged). The same sequences again in
 float64 through `torch.linalg` are the yardstick for the runs' trajectory
-error.
+error. Then the harness: `utils/bench_curve` at B = 1, 64, 512 on both
+routes (the Schur kernel at B = 512), `entry.dryrun_multichip(2)` (two
+ranks on this card over gloo, float64 against one rank, float32), the
+EuRoC runner `utils/benchmark.run_one` over a ground-truth CSV written from
+the analytic trajectory plus a full-width checkpoint round trip, and
+`utils/calibration` from 8 rendered chessboard views.
 
 It builds the two CUDA kernels from `anticipated_vins_mono_torch/csrc/`,
 holds each against its plain PyTorch version on the card (the logdet kernel
@@ -56,7 +64,7 @@ power limit as `nvidia-smi` gives them, and the last line
 from __future__ import annotations
 
 import json
-import subprocess
+import os
 import sys
 import time
 
@@ -125,6 +133,44 @@ CAPSTONE_DURATION_S = 8.0
 CAPSTONE_JAX_ATE_M = [0.0314503, 0.0067043, 0.0064159, 0.0050708, 0.0126056]
 CAPSTONE_ATE_BOUND_M = 0.047
 STREAM_FRAMES = 20
+# `curve`: the batch-scaling curve's batches and timed solves per batch
+CURVE_BATCHES = (1, 64, 512)
+CURVE_REPS = 3
+# the Schur kernel at the other batches of the full curve, held against its
+# plain version and timed in the kernel phase
+SCHUR_CURVE_BATCHES = (16, 128, 256, 512)
+# `euroc`: `benchmark.run_one` over 8 s of a ground-truth CSV written from
+# `analytic_trajectory(12.0)`, anticipation selector, κ̄ = 30, float32. The
+# JAX package's ATE on the CPU over seeds 0-4 of the same call
+# (`tests/benchmark_reference.py benchmark`, REF_THREADS=1); the bound is
+# 1.5 × the largest
+EUROC_GT_SECONDS = 12.0
+EUROC_RUN = dict(policy="anticipate", kappa=30, max_seconds=8.0, dtype="f32")
+EUROC_JAX_ATE_M = [0.3256648, 0.5953364, 0.4151897, 0.9048229, 0.4163073]
+EUROC_ATE_BOUND_M = 1.357
+# `euroc`'s checkpoint round trip (full width, float64, oracle start)
+CKPT_FRAMES, CKPT_SAVE_AT = 20, 14
+# `calib`: 8 chessboard views at 752×480 through the EuRoC pinhole; the
+# JAX package's test bars (tests/test_calibration.py)
+CALIB_NX, CALIB_NY, CALIB_SQ = 8, 6, 0.06
+CALIB_REL_ERR = 0.005
+CALIB_RMS_PX = 0.3
+# (yaw-pitch-roll [deg], board centre in the camera [m]): two corner-coverage
+# views, one frontal, five tilted (drawn from `default_rng(1)` as in the JAX
+# package's test, 4 decimals). Each view's detection on the CPU holds its
+# order under 1e-7 and 1e-6 noise on the image: where two peaks of one
+# saddle lie within rounding of each other, the detector keeps both and
+# mis-orders the view (ROADMAP queue C 12); such a view is not among these.
+CALIB_VIEWS = [
+    ([-10.0, -10.0, 0.0], [-0.13, -0.08, 0.45]),
+    ([-10.0, 10.0, 0.0], [-0.13, 0.08, 0.45]),
+    ([0.0, 0.0, 0.0], [0.0, 0.0, 0.38]),
+    ([19.6622, -5.4481, 2.4797], [-0.1134, 0.0406, 0.6922]),
+    ([-10.2161, 17.3057, -9.8403], [-0.0112, -0.0586, 0.6314]),
+    ([-17.7927, -14.2612, 12.5182], [-0.0527, -0.0024, 0.8913]),
+    ([27.6994, 13.4874, 2.0613], [-0.0535, -0.0543, 0.8865]),
+    ([0.9641, -23.0481, 6.1745], [0.0664, 0.0181, 0.8628]),
+]
 # LK on the card against LK on the CPU from the same tracker state, first
 # frames of the image path. The fixed-iteration Gauss-Newton is
 # ill-conditioned for some points on the flat steps of the posterized
@@ -194,10 +240,9 @@ def kernel_ms(fn, reps: int = 50) -> float:
 
 
 def nvidia_smi_line() -> str:
-    out = subprocess.run(
-        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
-        capture_output=True, text=True, timeout=60, check=True)
-    return out.stdout.strip().splitlines()[0]
+    """The card's name and power limit, as `nvidia-smi` prints them."""
+    from anticipated_vins_mono_torch.utils.bench_curve import nvidia_smi
+    return nvidia_smi()
 
 
 # ----------------------------------------------------------------------------
@@ -267,11 +312,10 @@ def logdet_bound(B, N):
 
 
 def schur_bound(B, D, F):
-    """Inputs H, g, H_lp, h_ll, g_l, lam read once, dx, d_rho, pred written
-    once; symmetric Schur product F·D·(D+1) flop, factorization D³/3, two
-    triangular solves 2D², g_red and back-substitution 4FD."""
-    floats = D * D + D + F * D + 2 * F + 1 + D + F + 1
-    flops = F * D * (D + 1) + D ** 3 / 3 + 2 * D * D + 4 * F * D
+    """B scenarios of `hopper_kernels.schur_work` (the same count
+    `bench_curve` uses): each float moved once, each flop at the peak."""
+    from anticipated_vins_mono_torch.ops.hopper_kernels import schur_work
+    floats, flops = schur_work(D, F)
     return bound(B * floats * 4, B * flops)
 
 
@@ -555,6 +599,7 @@ def phase_kernels(hk):
             + no_cluster_b1["schur_product"]["share"],
     }
     schur["f192"] = schur_f192(hk)
+    schur["curve_batches"] = schur_curve_batches(hk)
     logdet["capstone_batch"] = logdet_capstone_batch(hk)
     emit({"phase": "kernel_check", "checked": [logdet, schur]})
     return logdet, schur
@@ -616,6 +661,33 @@ def schur_f192(hk):
               "library_ms": cuda_ms(lambda: schur_library_f32(*batch), 20)}
     emit({"phase": "schur_f192", **report})
     return report
+
+
+def schur_curve_batches(hk):
+    """The Schur kernel at the full curve's other batches (D = 178,
+    F = 128): against its plain version at the tolerances above, replayed
+    from a CUDA graph and timed, with its bound, the plain version's time
+    and the library call's."""
+    from anticipated_vins_mono_torch.utils.synthetic import schur_batch
+    out = []
+    for B in SCHUR_CURVE_BATCHES:
+        batch = schur_batch(B, 178, 128)
+        err = schur_agrees(hk, batch)
+        run = lambda: hk.schur_solve_fused(*batch)
+        if not all(torch.equal(a, b) for a, b in zip(graph_replay(run), run())):
+            raise AssertionError(f"Schur kernel at B = {B}: graph replay "
+                                 f"differs from eager")
+        b_ms, b_by = schur_bound(B, 178, 128)
+        out.append({"B": B, "D": 178, "F": 128, "max_abs_err": err,
+                    "cluster_ctas_per_scenario": hk.schur_cluster_size(B),
+                    "ms": kernel_ms(run),
+                    "plain_ms": cuda_ms(
+                        lambda: hk.schur_solve_fused_plain(*batch), 2, 1),
+                    "bound_ms": b_ms, "bound_by": b_by,
+                    "library_ms": cuda_ms(
+                        lambda: schur_library_f32(*batch), 10)})
+    emit({"phase": "schur_curve_batches", "rows": out})
+    return out
 
 
 def select_scored_by(hk, select, scorer):
@@ -1493,6 +1565,279 @@ def phase_stream(hk, smi):
     return counts
 
 
+def phase_curve(hk, smi):
+    """`utils/bench_curve.run_curve` at CURVE_BATCHES on both routes: the
+    kernel route launches the Schur kernel exactly once per LM iteration of
+    every batched solve (its untimed first solve and the flop-count solve
+    included), the f64 route never; the kernel route's final cost within
+    rtol 1e-2 of the f64 route's and its positions within 1e-3 m (the
+    `solve` phase's bounds)."""
+    from anticipated_vins_mono_torch.utils import bench_curve as bc
+    runs, counts = {}, {}
+    for fused in (True, False):
+        torch.cuda.synchronize()
+        hk.reset_launch_counts()
+        runs[fused] = bc.run_curve(CURVE_BATCHES, reps=CURVE_REPS,
+                                   fused_schur=fused, device="cuda",
+                                   return_outputs=True)
+        torch.cuda.synchronize()
+        counts[fused] = dict(hk.launch_counts)
+    iters = bc.FLAGSHIP.iters
+    for fused, (rows, _) in runs.items():
+        for row in rows:
+            want = iters * row["solves"] if fused else 0
+            if row["schur_launches"] != want:
+                raise AssertionError(f"curve fused={fused} B={row['B']}: "
+                                     f"{row['schur_launches']} Schur "
+                                     f"launches, wanted {want}")
+    if counts[False]["schur_solve_fused"] or counts[False]["logdet_psd_batched"] \
+            or counts[True]["logdet_psd_batched"]:
+        raise AssertionError(f"curve launched {counts}")
+    report = {"phase": "curve", "nvidia_smi": smi, "iters": iters,
+              "tolerance": "final cost rtol 1e-2, final positions 1e-3 m",
+              "peak_f32_flops": bc.PEAK_F32_FLOPS, "rows": []}
+    for (row_k, row_f) in zip(runs[True][0], runs[False][0]):
+        B = row_k["B"]
+        st_k, d_k = runs[True][1][B]
+        st_f, d_f = runs[False][1][B]
+        check_solve(f"curve kernel B={B}", d_k)
+        check_solve(f"curve f64 B={B}", d_f)
+        if not torch.allclose(d_k["cost"], d_f["cost"], rtol=1e-2, atol=0):
+            raise AssertionError(f"curve B={B}: final cost "
+                                 f"{d_k['cost'].tolist()[:2]} (kernel) vs "
+                                 f"{d_f['cost'].tolist()[:2]} (f64 Schur)")
+        dpos = float((st_k.p - st_f.p).abs().max())
+        if dpos > 1e-3:
+            raise AssertionError(f"curve B={B}: positions differ by {dpos} m")
+        report["rows"].append({
+            "B": B, "max_dpos_m": dpos,
+            **{f"kernel_{k}": row_k[k] for k in (
+                "iters_per_s", "ms_per_batched_solve", "flops_per_solve",
+                "mfu_f32", "first_solve_s", "schur_launches", "solves")},
+            **{f"f64_{k}": row_f[k] for k in (
+                "iters_per_s", "ms_per_batched_solve", "flops_per_solve",
+                "mfu_f32", "first_solve_s")}})
+    emit(report)
+    return counts[True]
+
+
+def phase_parallel(smi):
+    """`entry.entry()`'s flagship solve on the card (the cost must fall),
+    then `entry.dryrun_multichip(2)`: two ranks on this one card over gloo
+    with CUDA tensors (fp = 2), float64 and float32 in one process group.
+    In float64 the sharded solve equals the single-rank `lm_solve` on the
+    f64 Schur path (positions 1e-6, cost rtol 1e-5, `tests/test_parallel.py`'s
+    bounds) and the sharded selection picks the set of
+    `select_informative(impl="chol")` with Ω within rtol 1e-8; in float32
+    only that every scenario picks κ̄ (the float32 pick set is
+    order-dependent, ROADMAP queue C 1). A rank that fails fails the
+    phase."""
+    from anticipated_vins_mono_torch import entry
+    from anticipated_vins_mono_torch.models.anticipation import \
+        select_informative
+    from anticipated_vins_mono_torch.ops.window import lm_solve
+    from anticipated_vins_mono_torch.parallel.selector import gather_selection
+    from anticipated_vins_mono_torch.utils.synthetic import make_window_problem
+    report = {"phase": "parallel", "ranks": 2, "backend": "gloo",
+              "nvidia_smi": smi,
+              "tolerance": "f64: positions 1e-6, cost rtol 1e-5, the same "
+                           "selected set, Omega rtol 1e-8; f32: kappa picks"}
+    fn, args = entry.entry()
+    _, d = fn(*args)
+    if not float(d["cost"]) < float(d["cost0"]):
+        raise AssertionError(f"entry(): cost {float(d['cost0'])} -> "
+                             f"{float(d['cost'])}")
+    report["entry_cost0_cost"] = [float(d["cost0"]), float(d["cost"])]
+    t0 = time.perf_counter()
+    runs = entry.dryrun_multichip(2, dtypes=(torch.float64, torch.float32),
+                                  device="cuda")
+    report["seconds"] = time.perf_counter() - t0
+    for dtype, res in runs.items():
+        sel, Om = gather_selection([r["select"] for r in res], n_fp=2)
+        if dtype == torch.float32:
+            report["float32_picked"] = sel.sum(axis=1).tolist()
+            continue
+        prob = make_window_problem(entry.FLAGSHIP, dtype=dtype, device="cuda",
+                                   **entry.FLAGSHIP_PROBLEM)
+        st, diag = lm_solve(prob.init, prob.meas, entry.FLAGSHIP,
+                            device="cuda")
+        dpos = max(float(np.abs(r["solve"]["p"][0] - st.p.cpu().numpy()).max())
+                   for r in res)
+        cost = float(diag["cost"])
+        dcost = max(abs(float(r["solve"]["cost"][0]) - cost) / cost
+                    for r in res)
+        if not (dpos <= 1e-6 and dcost <= 1e-5):
+            raise AssertionError(f"parallel: sharded solve {dpos} m, cost "
+                                 f"rel {dcost} from the single-rank solve")
+        Omega, Deltas, probs, valid = (torch.from_numpy(x).cuda() for x in
+                                       entry.selection_inputs(1, 2, np.float64))
+        ref_sel, ref_Om = select_informative(
+            Omega[0], Deltas[0], probs[0], valid[0], entry.KAPPA, impl="chol",
+            device="cuda")
+        if not np.array_equal(sel[0], ref_sel.cpu().numpy()):
+            raise AssertionError("parallel: sharded selection picked another "
+                                 "set than select_informative")
+        om_err = float(np.abs(Om[0] - ref_Om.cpu().numpy()).max()
+                       / np.abs(ref_Om.cpu().numpy()).max())
+        if not np.allclose(Om[0], ref_Om.cpu().numpy(), rtol=1e-8, atol=0):
+            raise AssertionError(f"parallel: Omega rel {om_err}")
+        report.update(float64_max_dpos_m=dpos, float64_cost_rel=dcost,
+                      float64_cost=cost, float64_omega_max_rel=om_err)
+    emit(report)
+
+
+def phase_euroc(hk, smi):
+    """`benchmark.run_one` on the card over a written ground-truth CSV
+    (EUROC_RUN): initialized, no failure, ATE under EUROC_ATE_BOUND_M, and
+    no kernel launched (the runner keeps the JAX runner's routes). Then
+    a checkpoint round trip on the card at full width (window 10, 192
+    slots, float64, oracle start, no selector, as `tests/test_utils.py`'s
+    round trip): saved at frame CKPT_SAVE_AT and loaded into a fresh
+    estimator, the resumed run's next frames equal the uninterrupted run's
+    to atol 1e-9 on `p` and `db.inv_depth`."""
+    import tempfile
+    from anticipated_vins_mono_torch.models.estimator import VioEstimator
+    from anticipated_vins_mono_torch.ops.window import WindowConfig
+    from anticipated_vins_mono_torch.utils import benchmark, checkpoint, euroc
+    from anticipated_vins_mono_torch.utils.sequence import SequenceSimulator
+    from anticipated_vins_mono_torch.utils.synthetic import (
+        analytic_trajectory, write_euroc_csv)
+    with tempfile.TemporaryDirectory() as root:
+        os.makedirs(os.path.join(root, "SIM"))
+        write_euroc_csv(os.path.join(root, "SIM", "data.csv"),
+                        analytic_trajectory(EUROC_GT_SECONDS))
+        gt_dir, euroc.REFERENCE_GT_DIR = euroc.REFERENCE_GT_DIR, root
+        try:
+            torch.cuda.synchronize()
+            hk.reset_launch_counts()
+            row = benchmark.run_one("SIM", device="cuda", **EUROC_RUN)
+            torch.cuda.synchronize()
+            counts = dict(hk.launch_counts)
+        finally:
+            euroc.REFERENCE_GT_DIR = gt_dir
+        # the runner's defaults, as the JAX runner's: the f64 Schur path and
+        # "lowrank" scoring, so neither kernel runs here
+        if any(counts.values()):
+            raise AssertionError(f"euroc: launched {counts}, wanted none")
+        if not (row["initialized"] and row["failures"] == 0
+                and row["ate_rmse"] < EUROC_ATE_BOUND_M):
+            raise AssertionError(f"euroc: {row}, bound {EUROC_ATE_BOUND_M} m")
+
+        traj = analytic_trajectory(3.0)
+        frames = list(SequenceSimulator(traj, seed=0, pixel_noise=0.5,
+                                        max_features=150).frames(CKPT_FRAMES))
+        cfg = WindowConfig(window=10, max_feats=192)
+        new = lambda: VioEstimator(cfg, init_state={
+            "p": traj.p[0], "q": traj.q[0], "v": traj.v[0]}, device="cuda")
+        est = new()
+        for fm in frames[:CKPT_SAVE_AT]:
+            est.process_frame(fm)
+        path = os.path.join(root, "ckpt.npz")
+        checkpoint.save_estimator(path, est)
+        resumed = new()
+        checkpoint.load_estimator(path, resumed)
+        if resumed.prior.J0.device.type != "cuda":
+            raise AssertionError("euroc: the loaded prior is not on the card")
+        err_p = err_d = 0.0
+        for fm in frames[CKPT_SAVE_AT:]:
+            est.process_frame(fm)
+            resumed.process_frame(fm)
+            err_p = max(err_p, float(np.abs(est.p - resumed.p).max()))
+            err_d = max(err_d, float(np.abs(est.db.inv_depth
+                                            - resumed.db.inv_depth).max()))
+        if not (err_p <= 1e-9 and err_d <= 1e-9 and est.initialized):
+            raise AssertionError(f"euroc: resumed run {err_p} m, inverse "
+                                 f"depth {err_d} from the uninterrupted run")
+    emit({"phase": "euroc", **row, "ate_bound_m": EUROC_ATE_BOUND_M,
+          "jax_cpu_ate_m": EUROC_JAX_ATE_M, "launches": counts,
+          "checkpoint_resume_max_dp_m": err_p,
+          "checkpoint_resume_max_dinv_depth": err_d, "nvidia_smi": smi})
+
+
+def phase_calib(smi):
+    """CALIB_VIEWS rendered at 752×480 through the EuRoC pinhole on the card
+    (3×3 supersampling), `calibrate_from_images` on the card in float64:
+    fx, fy, cx, cy within 0.5 % and reprojection RMS under 0.3 px (the JAX
+    package's test bars); `_saddle_response` card vs CPU on one view within
+    1e-3 px. Each view's detected corners against the true projections are
+    reported (a view whose detection is mis-ordered would show there)."""
+    from anticipated_vins_mono_torch.ops import cameras, lie
+    from anticipated_vins_mono_torch.utils import calibration as cal
+    nx, ny, sq = CALIB_NX, CALIB_NY, CALIB_SQ
+    gt = cameras.euroc_camera(dtype=torch.float64, device="cuda")
+    center = np.array([-(nx - 1) * sq / 2, -(ny - 1) * sq / 2, 0.0])
+    board = cal.board_points(nx, ny, sq)
+    t0 = time.perf_counter()
+    imgs, truth = [], []
+    for ypr, tc in CALIB_VIEWS:
+        R = lie.ypr_to_rot(torch.tensor(ypr, dtype=torch.float64)).numpy()
+        t = np.asarray(tc) + R @ center
+        imgs.append(cal.render_chessboard(gt, R, t, nx, ny, sq, ss=3))
+        truth.append(cameras.space_to_plane(
+            gt, torch.as_tensor(board @ R.T + t, device="cuda")).cpu().numpy())
+    torch.cuda.synchronize()
+    render_s = time.perf_counter() - t0
+    view_err = []
+    for img, uv in zip(imgs, truth):
+        det = cal.detect_chessboard(img, nx, ny)
+        view_err.append(None if det is None else float(np.abs(det - uv).max()))
+    tmpl = cameras.PinholeCamera.create(400., 400., 376., 240., width=752,
+                                        height=480, dtype=torch.float64,
+                                        device="cuda")
+    t0 = time.perf_counter()
+    res = cal.calibrate_from_images(imgs, nx, ny, sq, tmpl, iters=60)
+    calib_s = time.perf_counter() - t0
+    if res is None:
+        raise AssertionError(f"calib: fewer than 3 views detected {view_err}")
+    rel = {f: abs(float(getattr(res.camera, f)) - float(getattr(gt, f)))
+           / float(getattr(gt, f)) for f in ("fx", "fy", "cx", "cy")}
+    uv_card, _ = cal._saddle_response(imgs[0], nx * ny)
+    uv_cpu, _ = cal._saddle_response(imgs[0].cpu(), nx * ny)
+    card_cpu = float((uv_card.cpu() - uv_cpu).abs().max())
+    if not (max(rel.values()) < CALIB_REL_ERR and res.rms_px < CALIB_RMS_PX
+            and card_cpu <= 1e-3):
+        raise AssertionError(f"calib: rel {rel}, rms {res.rms_px} px, card vs "
+                             f"CPU {card_cpu} px, views {view_err}")
+    emit({"phase": "calib", "views": len(imgs), "views_used": res.n_views,
+          "view_max_err_px": view_err, "rel_err": rel, "rms_px": res.rms_px,
+          "saddle_card_vs_cpu_px": card_cpu, "render_s": render_s,
+          "calibrate_s": calib_s, "nvidia_smi": smi})
+
+
+def euroc_runners() -> int:
+    """`--euroc-runners`: the JAX package's EuRoC runners, ported, on the
+    card over the `euroc` phase's written sequence: `run_benchmark` over the
+    three policies at κ̄ = 30 (8 s, float32) and `run_image_benchmark`
+    (752×480, 8 s, no selector). One JSON line a row."""
+    import tempfile
+    from anticipated_vins_mono_torch.utils import (benchmark, euroc,
+                                                   image_benchmark)
+    from anticipated_vins_mono_torch.utils.synthetic import (
+        analytic_trajectory, write_euroc_csv)
+    smi = nvidia_smi_line()
+    with tempfile.TemporaryDirectory() as root:
+        os.makedirs(os.path.join(root, "SIM"))
+        write_euroc_csv(os.path.join(root, "SIM", "data.csv"),
+                        analytic_trajectory(EUROC_GT_SECONDS))
+        gt_dir, euroc.REFERENCE_GT_DIR = euroc.REFERENCE_GT_DIR, root
+        try:
+            t0 = time.perf_counter()
+            rows = benchmark.run_benchmark(
+                kappas=(EUROC_RUN["kappa"],),
+                max_seconds=EUROC_RUN["max_seconds"],
+                dtype=EUROC_RUN["dtype"], device="cuda")
+            emit({"phase": "run_benchmark", "rows": rows, "nvidia_smi": smi,
+                  "seconds": time.perf_counter() - t0})
+            t0 = time.perf_counter()
+            row = image_benchmark.run_image_benchmark(
+                "SIM", max_seconds=EUROC_RUN["max_seconds"], device="cuda")
+            emit({"phase": "run_image_benchmark", **row, "nvidia_smi": smi,
+                  "seconds": time.perf_counter() - t0})
+        finally:
+            euroc.REFERENCE_GT_DIR = gt_dir
+    return 0
+
+
 def image_seed_sweep(seeds) -> int:
     """`--image-seeds`: the image path alone, float32 with both kernels and
     float64, once per tracker seed; one line per run with its ATE. Reads
@@ -1648,6 +1993,8 @@ def main() -> int:
         return capstone_seed_sweep(sys.argv[2:])
     if len(sys.argv) > 2 and sys.argv[1] == "--capstone-step-parity":
         return capstone_step_parity(int(sys.argv[2]))
+    if sys.argv[1:] == ["--euroc-runners"]:
+        return euroc_runners()
 
     from anticipated_vins_mono_torch.models import anticipation as ant
     from anticipated_vins_mono_torch.models.feature_selector import \
@@ -1863,8 +2210,14 @@ def main() -> int:
     launches["loop"] = phase_loop(hk, smi)
     launches["capstone"] = phase_capstone(hk, smi)
     launches["stream"] = phase_stream(hk, smi)
-    # the loop pass has no selector: it runs the Schur kernel only
-    runs_on = {"logdet_psd_batched": set(launches) - {"loop"},
+    # ------------------- the harness: the batch curve, ranks, EuRoC, calib
+    launches["curve"] = phase_curve(hk, smi)
+    phase_parallel(smi)
+    phase_euroc(hk, smi)
+    phase_calib(smi)
+    # the loop pass has no selector and the curve no selector either: they
+    # run the Schur kernel only
+    runs_on = {"logdet_psd_batched": set(launches) - {"loop", "curve"},
                "schur_solve_fused": set(launches)}
     for k in (logdet_k, schur_k):
         k["launches_by_path"] = {path: c[k["name"]]
@@ -1881,7 +2234,8 @@ def main() -> int:
            for c in loader])
     schur_k["max_abs_err"] = max(
         [schur_k["max_abs_err"], schur_k["f192"]["max_abs_err"]]
-        + [c["max_abs_err"] for c in schur_k["called_shapes"]])
+        + [c["max_abs_err"] for c in schur_k["called_shapes"]
+           + schur_k["curve_batches"]])
 
     emit({"kernels": [logdet_k, schur_k]})
     emit({"phase": "done", "seconds": round(time.perf_counter() - t_start, 1)})

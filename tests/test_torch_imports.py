@@ -59,7 +59,13 @@ def test_port_has_the_expected_modules_and_kernel_sources():
                  "utils/profile_slice.py", "models/posegraph.py",
                  "models/loop_node.py", "utils/loop_benchmark.py",
                  "utils/placerec_eval.py", "utils/device_vio_bench.py",
-                 "utils/streaming_bench.py"):
+                 "utils/streaming_bench.py", "parallel/distributed.py",
+                 "parallel/sharded.py", "parallel/selector.py", "entry.py",
+                 "utils/timing.py", "utils/config.py", "utils/euroc.py",
+                 "utils/checkpoint.py", "utils/bench_curve.py",
+                 "utils/scaling_eval.py", "utils/benchmark.py",
+                 "utils/image_benchmark.py", "utils/calibration.py",
+                 "utils/viz.py", "utils/report.py"):
         assert need in names
     from anticipated_vins_mono_torch.ops import hopper_kernels as hk
     for src in hk.KERNEL_SOURCES.values():
@@ -215,6 +221,34 @@ def test_loop_closure_entry_points_raise_without_card():
                  lambda: device_vio_bench.main(duration=0.5),
                  lambda: streaming_bench.main(n_frames=1),
                  lambda: placerec_eval.build_keyframe_data(duration=0.5)):
+        with pytest.raises((RuntimeError, AssertionError)):
+            make()
+
+
+def test_harness_entry_points_raise_without_card(tmp_path, monkeypatch):
+    """The curve, the flagship entry, the config's camera, the chessboard
+    detector on a numpy image and both EuRoC runners default to the card:
+    without one they raise."""
+    _no_card()
+    from anticipated_vins_mono_torch import entry
+    from anticipated_vins_mono_torch.ops.window import WindowConfig
+    from anticipated_vins_mono_torch.utils import (
+        bench_curve, benchmark, calibration, config, euroc, image_benchmark)
+    from anticipated_vins_mono_torch.utils.synthetic import (
+        analytic_trajectory, write_euroc_csv)
+    (tmp_path / "SIM").mkdir()
+    write_euroc_csv(str(tmp_path / "SIM" / "data.csv"),
+                    analytic_trajectory(1.0))
+    monkeypatch.setattr(euroc, "REFERENCE_GT_DIR", str(tmp_path))
+    tiny = WindowConfig(window=2, max_feats=4, iters=1)
+    for make in (lambda: bench_curve.run_curve((1,), reps=1, cfg=tiny),
+                 entry.entry,
+                 lambda: config.VinsConfig().camera_model(),
+                 lambda: calibration.detect_chessboard(
+                     np.zeros((40, 40)), 2, 2),
+                 lambda: benchmark.run_one("SIM", max_seconds=0.5),
+                 lambda: image_benchmark.run_image_benchmark(
+                     "SIM", max_seconds=0.5)):
         with pytest.raises((RuntimeError, AssertionError)):
             make()
 
