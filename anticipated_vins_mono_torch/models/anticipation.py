@@ -376,11 +376,16 @@ def select_informative(Omega: Tensor, Deltas: Tensor, probs: Tensor,
             eye_r = torch.eye(r, dtype=dtype, device=device)
 
             def score(Om):
-                L, _ = torch.linalg.cholesky_ex(Om)
+                L, info = torch.linalg.cholesky_ex(Om)
                 W = torch.linalg.solve_triangular(L, wide, upper=False)
                 W = W.reshape(batch + (D, F, r)).transpose(-3, -2)
                 G = eye_r + probs[..., None, None] * (W.mT @ W)
-                return lie.logdet_psd(G)
+                gain = lie.logdet_psd(G)
+                # Ω_acc not positive definite: every gain of that problem is
+                # NaN (the JAX Cholesky's NaN factor), so the round admits
+                # nothing and the caller's backfill takes over
+                return torch.where((info > 0)[..., None],
+                                   torch.full_like(gain, float("nan")), gain)
         elif device.type == "cuda" and dtype == torch.float32 and not batch:
             # one problem in float32 on the card: the kernel's loader forms
             # Ω + p·Δ itself, no [F,D,D] temporary per round

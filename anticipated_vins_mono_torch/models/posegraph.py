@@ -27,8 +27,9 @@ Where the two differ:
 - `pgo_solve` is plain float64 torch: each edge's 4×4 Jacobian blocks in
   closed form, H and g assembled by `index_put_(accumulate=True)` of the
   JᵢᵀJᵢ, JᵢᵀJⱼ, JⱼᵀJⱼ blocks (the JAX package embeds every edge's rows in a
-  dense [E, 4, 4K] one-hot tensor), `torch.linalg.cholesky` +
-  `torch.cholesky_solve`, a Python loop over the iterations;
+  dense [E, 4, 4K] one-hot tensor), `lie.cholesky_or_nan` (NaN where it
+  fails, as the JAX Cholesky) + `torch.cholesky_solve`, a Python loop
+  over the iterations;
 - `PoseGraph` takes `device`, where `pgo_solve` runs (the card unless the
   caller asks for the CPU). Its bookkeeping stays numpy on the host, the
   scalar rotation conversions through the port's `ops/lie` in float64.
@@ -374,7 +375,7 @@ def pgo_solve(pos: Tensor, yaw: Tensor, pitch_roll: Tensor,
         H = H * keep[:, None] * keep[None, :] + torch.diag(fmask)
         g = g * keep
         H = H + 1e-6 * torch.diag(torch.clamp(torch.diagonal(H), min=1.0))
-        L = torch.linalg.cholesky(H)
+        L = lie.cholesky_or_nan(H)
         dx = -torch.cholesky_solve(g[:, None], L)[:, 0]
         dx = dx.reshape(K, 4)
         # dx[:,3] is already in the yaw variable's unit (degrees)

@@ -56,10 +56,12 @@ def imu_residual_raw(p_i, q_i, v_i, ba_i, bg_i,
 
 
 def sqrt_info_from_cov(P: Tensor, jitter: float = 1e-11) -> Tensor:
-    """Lower-triangular S = L⁻¹ with P = LLᵀ, so ‖S r‖² = rᵀP⁻¹r."""
+    """Lower-triangular S = L⁻¹ with P = LLᵀ, so ‖S r‖² = rᵀP⁻¹r. A P that
+    is not positive definite gives NaN (no exception), as the JAX
+    counterpart does."""
     n = P.shape[-1]
     eye = torch.eye(n, dtype=P.dtype, device=P.device)
-    L = torch.linalg.cholesky(P + jitter * eye)
+    L = lie.cholesky_or_nan(P + jitter * eye)
     return torch.linalg.solve_triangular(L, eye.expand_as(P), upper=False)
 
 

@@ -258,6 +258,15 @@ def pose_boxplus(p: Tensor, q: Tensor, dx: Tensor):
 # ----------------------------------------------------------------------------
 
 
+def cholesky_or_nan(A: Tensor) -> Tensor:
+    """Lower Cholesky factor of [...,n,n]. Where a matrix is not positive
+    definite its factor is NaN (no exception), as `jnp.linalg.cholesky`
+    returns."""
+    L, info = torch.linalg.cholesky_ex(A)
+    return torch.where((info > 0)[..., None, None],
+                       torch.full_like(L, float("nan")), L)
+
+
 def logdet_psd(M: Tensor) -> Tensor:
     """log-determinant of an SPD matrix [...,n,n] via Cholesky:
     2·Σ log diag(L). A matrix that is not positive definite gives NaN

@@ -173,7 +173,7 @@ def preintegrate(dts: Tensor, accs: Tensor, gyrs: Tensor,
     S = None
     if with_cov:
         eye = torch.eye(15, dtype=dtype, device=dev)
-        L = torch.linalg.cholesky(P + 1e-11 * eye)
+        L = lie.cholesky_or_nan(P + 1e-11 * eye)
         S = torch.linalg.solve_triangular(L, eye.expand_as(L), upper=False)
     return Preintegrated(dp, dq, dv, J, P, dt_sum, ba.to(dtype), bg.to(dtype), S)
 

@@ -132,10 +132,7 @@ def sharded_lm_solve(cfg: WindowConfig, mesh):
 
             diag = torch.diagonal(H_red, dim1=-2, dim2=-1)
             damp = lam_ * torch.clamp(diag, min=1e-8) + 1e-10
-            # a failed factorization gives NaN, as jnp.linalg.cholesky does
-            L, info = torch.linalg.cholesky_ex(H_red + torch.diag_embed(damp))
-            L = torch.where((info > 0)[..., None, None],
-                            torch.full_like(L, float("nan")), L)
+            L = lie.cholesky_or_nan(H_red + torch.diag_embed(damp))
             dx = -torch.cholesky_solve(g_red[..., None], L)[..., 0]
             d_rho = -inv_h * (g_l + (H_lp @ dx[..., None])[..., 0])
 

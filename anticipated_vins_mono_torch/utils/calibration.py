@@ -381,8 +381,7 @@ def _lm_refine(theta0: Tensor, rvecs0: Tensor, tvecs0: Tensor, X: Tensor,
         damp = lam * torch.clamp(dH, min=1e-8)
         dscale = torch.rsqrt(torch.clamp(dH + damp, min=1e-20))
         A = (Hm + torch.diag(damp)) * dscale[:, None] * dscale[None, :]
-        L, info = torch.linalg.cholesky_ex(A)
-        L = torch.where(info > 0, torch.full_like(L, float("nan")), L)
+        L = lie.cholesky_or_nan(A)
         dz = -dscale * torch.cholesky_solve((g * dscale)[:, None], L)[:, 0]
         cand = z + dz
         new_cost = 0.5 * torch.sum(residual(cand) ** 2)

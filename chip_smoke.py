@@ -8,7 +8,13 @@
                                                        # capstone runner,
                                                        # three precisions
     python3 chip_smoke.py --capstone-seeds float32_host_control 0 1 2 3 4
+    python3 chip_smoke.py --capstone-seeds float32_cpu_route 0 1 2 3 4
+                                    # "chol" scored by a Cholesky (the JAX
+                                    # package's CPU route), no logdet launch
     python3 chip_smoke.py --capstone-step-parity 0   # vio_step card vs CPU
+    python3 chip_smoke.py --capstone-step-parity 0 float32   # the float32
+                                    # capstone run's steps, recorded for
+                                    # the JAX replay on the CPU
     python3 chip_smoke.py --euroc-runners   # run_benchmark and
                                             # run_image_benchmark over the
                                             # `euroc` phase's written CSV
@@ -32,8 +38,9 @@ against CPU, then `utils/loop_benchmark`'s VIO + `LoopClosureNode` pass over
 14 s of the circuit (192 landmark slots: the Schur kernel at F = 192); the
 JAX package's capstone runner `utils/device_vio_bench` (render → host
 warm-up → hand-off → `tracker_step` → `vio_step` per frame, 8 s of the
-circuit) and its streaming runner `utils/streaming_bench` (tracker →
-selector → solve, 20 frames, fused and staged). The same sequences again in
+circuit, tracker seeds 0-4, each run a process of its own, all at once)
+and its streaming runner `utils/streaming_bench` (tracker → selector →
+solve, 20 frames, fused and staged). The same sequences again in
 float64 through `torch.linalg` are the yardstick for the runs' trajectory
 error. Then the harness: `utils/bench_curve` at B = 1, 64, 512 on both
 routes (the Schur kernel at B = 512), `entry.dryrun_multichip(2)` (two
@@ -125,13 +132,33 @@ LOOP_ATE_BOUND_M = 1.83
 LOOP_EDGE_T_ERR_BOUND_M = 0.5045
 LOOP_EDGE_YAW_ERR_BOUND_DEG = 4.682
 LOOP_PATH_RATIO_BOUND = 1.782
-# the capstone runner (`utils/device_vio_bench.main`, κ̄ = 30, float32) over
-# 8 s of the circuit: `tests/loop_reference.py capstone --duration 8` reads
-# the JAX package's ATE 0.0314503, 0.0067043, 0.0064159, 0.0050708,
-# 0.0126056 m over tracker seeds 0-4; the bound is 1.5 times the largest
+# the capstone runner (`utils/device_vio_bench.main`, κ̄ = 30 "chol", float32,
+# both kernels) over 8 s of the circuit, tracker seeds 0-4. The bound holds
+# seed 0 alone (ROADMAP queue C 11): it is 1.5 times the largest reading of
+# `tests/loop_reference.py capstone --duration 8` over seeds 0-4, the JAX
+# package's runner on the CPU with its own float64 Schur path
+# (CAPSTONE_JAX_CPU_ROUTE_ATE_M["f64_schur"]); seeds 1-4 read above it on
+# the card. The JAX package scores "chol" by two routes: on the CPU a
+# Cholesky gives NaN on this Ω and the greedy falls back to the κ̄ most
+# probable features; on a TPU its Pallas logdet kernel floors the pivots at
+# 1e-30 and the greedy picks by the float32 gains, as the card's kernel does.
+# `tests/selection_route_reference.py --duration 8 --seeds 0 1 2 3 4` reads
+# the TPU route (both Pallas kernels in interpret mode), `--route cpu` the
+# CPU route with the Pallas Schur kernel. Both spread as far as each other,
+# below the card's: the route does not explain the card's spread
 CAPSTONE_DURATION_S = 8.0
-CAPSTONE_JAX_ATE_M = [0.0314503, 0.0067043, 0.0064159, 0.0050708, 0.0126056]
+CAPSTONE_SEEDS = (0, 1, 2, 3, 4)
+CAPSTONE_BOUND_SEEDS = (0,)
+CAPSTONE_JAX_TPU_ROUTE_ATE_M = [0.0113006, 0.0289979, 0.0055431, 0.0072173,
+                                0.0039123]
+CAPSTONE_JAX_CPU_ROUTE_ATE_M = {
+    "pallas_schur": [0.0108061, 0.0409460, 0.0081109, 0.0451973, 0.0031199],
+    "f64_schur": [0.0314503, 0.0067043, 0.0064159, 0.0050708, 0.0126056]}
 CAPSTONE_ATE_BOUND_M = 0.047
+# runs of the capstone runner at once on the card, each a process of its own
+# (`--capstone-run`): the runner is host-bound, one core a run
+CAPSTONE_PARALLEL = 5
+CAPSTONE_RUN_TIMEOUT_S = 600
 STREAM_FRAMES = 20
 # `curve`: the batch-scaling curve's batches and timed solves per batch
 CURVE_BATCHES = (1, 64, 512)
@@ -1509,33 +1536,147 @@ def phase_loop(hk, smi):
     return counts
 
 
+def capstone_launches(variant: str, rows) -> dict | None:
+    """The launches a capstone run of `variant` must make: the logdet kernel
+    30 times a device frame where float32 "chol" scores on the card's route,
+    the Schur kernel 8 times a solve (device frames and the warm-up's host
+    solves) where the float32 window solve takes it. None for the host
+    control, which the phases do not count."""
+    dtype_str, fused_schur, host_control, cpu_route = \
+        CAPSTONE_VARIANTS[variant]
+    if host_control:
+        return None
+    f32 = dtype_str == "float32"
+    n = rows["n_frames_device"]
+    return {"logdet_psd_batched": 30 * n if f32 and not cpu_route else 0,
+            "schur_solve_fused": 8 * (n + rows["host_solves"])
+            if f32 and fused_schur is not False else 0}
+
+
+def capstone_run(variant: str, seed: int) -> int:
+    """`--capstone-run VARIANT SEED`: one capstone run in this process (the
+    `capstone` phase and `--capstone-seeds` start one process per run). The
+    launch counts are set to 0 just before the runner and read just after;
+    the kernel entry points record their shapes. `float32_cpu_route` scores
+    "chol" through `lie.logdet_psd` (a Cholesky: NaN where Ω + p·Δ is not
+    positive definite, then the backfill), the JAX package's CPU route, for
+    this run only. Prints one line `{"capstone_run": {...}}`."""
+    from anticipated_vins_mono_torch.ops import hopper_kernels as hk
+    from anticipated_vins_mono_torch.ops import lie
+    from anticipated_vins_mono_torch.utils import device_vio_bench as dvb
+    dtype_str, fused_schur, host_control, cpu_route = \
+        CAPSTONE_VARIANTS[variant]
+    hk.build_kernels()
+    restore_wrappers = record_called_shapes(hk)
+    kernel_routes = hk.logdet_psd_affine_batched, hk.logdet_psd
+    if cpu_route:
+        hk.logdet_psd_affine_batched = lambda Om, Deltas, scale, stamps=None: \
+            lie.logdet_psd(Om[None] + scale[:, None, None] * Deltas)
+        hk.logdet_psd = lie.logdet_psd
+    try:
+        torch.cuda.synchronize()
+        hk.reset_launch_counts()
+        rows = dvb.main(duration=CAPSTONE_DURATION_S, kappa=30,
+                        dtype_str=dtype_str, sel_impl="chol", device="cuda",
+                        tracker_seed=seed, fused_schur=fused_schur,
+                        host_control=host_control)
+        torch.cuda.synchronize()
+        counts = dict(hk.launch_counts)
+    finally:
+        hk.logdet_psd_affine_batched, hk.logdet_psd = kernel_routes
+        restore_wrappers()
+    emit({"capstone_run": {
+        "variant": variant, "tracker_seed": seed, "rows": rows,
+        "launches": counts,
+        "called_shapes": {k: sorted(v) for k, v in CALLED_SHAPES.items()}}})
+    return 0
+
+
+def capstone_runs(jobs) -> list:
+    """Each (variant, tracker seed) of `jobs` in a process of its own
+    (`--capstone-run`), CAPSTONE_PARALLEL at once on the card. Returns the
+    runs' records in job order; a run that fails, or whose launches are not
+    `capstone_launches`, fails the caller. Every process is ended before
+    this returns."""
+    import subprocess
+    import tempfile
+    out = []
+    for lo in range(0, len(jobs), CAPSTONE_PARALLEL):
+        wave = jobs[lo:lo + CAPSTONE_PARALLEL]
+        procs = []
+        try:
+            for variant, seed in wave:
+                log = tempfile.TemporaryFile(mode="w+")
+                procs.append((subprocess.Popen(
+                    [sys.executable, os.path.abspath(__file__),
+                     "--capstone-run", variant, str(seed)],
+                    stdout=log, stderr=subprocess.STDOUT, text=True), log))
+            for (variant, seed), (proc, log) in zip(wave, procs):
+                proc.wait(timeout=CAPSTONE_RUN_TIMEOUT_S)
+                log.seek(0)
+                text = log.read()
+                if proc.returncode != 0:
+                    raise AssertionError(
+                        f"capstone {variant} seed {seed}: exit "
+                        f"{proc.returncode}\n{text[-4000:]}")
+                rec = json.loads(text.strip().splitlines()[-1])["capstone_run"]
+                want = capstone_launches(variant, rec["rows"])
+                if want is not None and rec["launches"] != want:
+                    raise AssertionError(
+                        f"capstone {variant} seed {seed} launched "
+                        f"{rec['launches']}, wanted {want}")
+                out.append(rec)
+        finally:
+            for proc, log in procs:
+                if proc.poll() is None:
+                    proc.kill()
+                proc.wait()
+                log.close()
+    return out
+
+
 def phase_capstone(hk, smi):
     """The capstone runner at full width: render the circuit, warm the host
     estimator up on the device tracker, hand off, then `tracker_step` →
-    `vio_step` per frame, float32 with both kernels (κ̄ = 30, "chol")."""
-    from anticipated_vins_mono_torch.utils import device_vio_bench as dvb
-
-    torch.cuda.synchronize()
-    hk.reset_launch_counts()
-    rows = dvb.main(duration=CAPSTONE_DURATION_S, kappa=30,
-                    dtype_str="float32", sel_impl="chol", device="cuda")
-    torch.cuda.synchronize()
-    counts = dict(hk.launch_counts)
-    n = rows["n_frames_device"]
-    # the warm-up's host window solves launch the Schur kernel as well
-    want = {"logdet_psd_batched": 30 * n,
-            "schur_solve_fused": 8 * (n + rows["host_solves"])}
-    if counts != want:
-        raise AssertionError(f"capstone launched {counts}, wanted {want}")
-    if rows["fail_flags"] or not rows["ate_rmse_m"] < CAPSTONE_ATE_BOUND_M:
-        raise AssertionError(f"capstone: {rows['fail_flags']} fail flags, ATE "
-                             f"{rows['ate_rmse_m']} m (bound "
-                             f"{CAPSTONE_ATE_BOUND_M} m)")
-    emit({"phase": "capstone", **rows, "launches": counts,
+    `vio_step` per frame, float32 with both kernels (κ̄ = 30, "chol"), once
+    per tracker seed of CAPSTONE_SEEDS, the runs at once (`capstone_runs`).
+    Each run: exactly 30 + 8 launches per device frame and 8 per warm-up
+    solve, no fail flag; the runs of CAPSTONE_BOUND_SEEDS: ATE under
+    CAPSTONE_ATE_BOUND_M. The runs' shapes join CALLED_SHAPES; returns the
+    launches summed over the runs."""
+    t0 = time.perf_counter()
+    recs = capstone_runs([("float32_schur_kernel", s) for s in CAPSTONE_SEEDS])
+    wall = time.perf_counter() - t0
+    counts = {name: 0 for name in hk.launch_counts}
+    for rec in recs:
+        rows = rec["rows"]
+        if rows["fail_flags"] or (
+                rec["tracker_seed"] in CAPSTONE_BOUND_SEEDS
+                and not rows["ate_rmse_m"] < CAPSTONE_ATE_BOUND_M):
+            raise AssertionError(
+                f"capstone seed {rec['tracker_seed']}: {rows['fail_flags']} "
+                f"fail flags, ATE {rows['ate_rmse_m']} m (bound "
+                f"{CAPSTONE_ATE_BOUND_M} m)")
+        for name, n in rec["launches"].items():
+            counts[name] += n
+        for name, shapes in rec["called_shapes"].items():
+            CALLED_SHAPES[name].update(tuple(x) for x in shapes)
+        emit({"phase": "capstone_seed", "variant": "float32_schur_kernel",
+              "tracker_seed": rec["tracker_seed"], **rows,
+              "launches": rec["launches"]})
+    emit({"phase": "capstone", "seeds": list(CAPSTONE_SEEDS),
+          "runs_at_once": min(CAPSTONE_PARALLEL, len(CAPSTONE_SEEDS)),
+          "seconds": wall,
+          "ate_rmse_m": [r["rows"]["ate_rmse_m"] for r in recs],
+          "launches": counts,
           "launches_per_device_frame": {"logdet_psd_batched": 30,
                                         "schur_solve_fused": 8},
           "ate_bound_m": CAPSTONE_ATE_BOUND_M,
-          "jax_cpu_ate_rmse_m_by_tracker_seed": CAPSTONE_JAX_ATE_M,
+          "ate_bound_seeds": list(CAPSTONE_BOUND_SEEDS),
+          "jax_tpu_route_ate_rmse_m_by_tracker_seed":
+              CAPSTONE_JAX_TPU_ROUTE_ATE_M,
+          "jax_cpu_route_ate_rmse_m_by_tracker_seed":
+              CAPSTONE_JAX_CPU_ROUTE_ATE_M,
           "nvidia_smi": smi})
     return counts
 
@@ -1870,10 +2011,14 @@ def image_seed_sweep(seeds) -> int:
 # Schur path (the JAX runner's default, `pallas_schur=False`), and float64
 # — and, when named, its `host_control` mode (the host estimator with the
 # `AttentionSelector` on the same tracker measurements, float32, kernels on)
-CAPSTONE_VARIANTS = {"float32_schur_kernel": ("float32", None, False),
-                     "float32_f64_schur": ("float32", False, False),
-                     "float64": ("float64", None, False),
-                     "float32_host_control": ("float32", None, True)}
+# and `float32_cpu_route` (the `capstone` phase's run with "chol" scored by
+# a Cholesky, the JAX package's CPU route: no logdet launch).
+# name → (dtype, fused_schur, host_control, cpu_route)
+CAPSTONE_VARIANTS = {"float32_schur_kernel": ("float32", None, False, False),
+                     "float32_f64_schur": ("float32", False, False, False),
+                     "float64": ("float64", None, False, False),
+                     "float32_host_control": ("float32", None, True, False),
+                     "float32_cpu_route": ("float32", None, False, True)}
 CAPSTONE_DEFAULT_VARIANTS = ("float32_schur_kernel", "float32_f64_schur",
                              "float64")
 
@@ -1882,33 +2027,34 @@ def capstone_seed_sweep(args) -> int:
     """`--capstone-seeds [VARIANT ...] SEED ...`: the capstone runner alone,
     as the `capstone` phase runs it and in the other CAPSTONE_VARIANTS (the
     default three unless variants are named), once per tracker seed (the
-    seed picks the tracker's RANSAC draws and nothing else); one line per
-    run with its ATE. Reads how far the ATE spreads, beside the JAX
-    package's spread on the CPU (`tests/loop_reference.py capstone`)."""
+    seed picks the tracker's RANSAC draws and nothing else), the runs
+    CAPSTONE_PARALLEL at once (`capstone_runs`, which also holds each run's
+    launches); one line per run with its ATE. Reads how far the ATE spreads,
+    beside the JAX package's spread on the CPU on either scoring route."""
     from anticipated_vins_mono_torch.ops import hopper_kernels as hk
-    from anticipated_vins_mono_torch.utils import device_vio_bench as dvb
     seeds = [int(a) for a in args if a.isdigit()]
     names = [a for a in args if not a.isdigit()] or CAPSTONE_DEFAULT_VARIANTS
     hk.build_kernels()
+    t0 = time.perf_counter()
+    recs = capstone_runs([(name, seed) for name in names for seed in seeds])
     ates = {name: [] for name in names}
-    for name in names:
-        dtype_str, fused_schur, host_control = CAPSTONE_VARIANTS[name]
-        for seed in seeds:
-            rows = dvb.main(duration=CAPSTONE_DURATION_S, kappa=30,
-                            dtype_str=dtype_str, sel_impl="chol",
-                            device="cuda", tracker_seed=seed,
-                            fused_schur=fused_schur,
-                            host_control=host_control)
-            ates[name].append(rows["ate_rmse_m"])
-            emit({"phase": "capstone_seed", "variant": name,
-                  "tracker_seed": seed, **{k: rows[k] for k in (
-                      "ate_rmse_m", "fail_flags", "failures", "handoff_frame",
-                      "n_frames_device", "keyframe_fraction",
-                      "device_ms_per_frame", "host_ms_per_frame",
-                      "tracker_ms_per_frame", "vio_step_ms_per_frame")
-                      if k in rows}})
+    for rec in recs:
+        rows = rec["rows"]
+        ates[rec["variant"]].append(rows["ate_rmse_m"])
+        emit({"phase": "capstone_seed", "variant": rec["variant"],
+              "tracker_seed": rec["tracker_seed"],
+              "launches": rec["launches"], **{k: rows[k] for k in (
+                  "ate_rmse_m", "fail_flags", "failures", "handoff_frame",
+                  "n_frames_device", "keyframe_fraction",
+                  "device_ms_per_frame", "host_ms_per_frame",
+                  "tracker_ms_per_frame", "vio_step_ms_per_frame")
+                  if k in rows}})
     emit({"phase": "capstone_seeds", "seeds": list(seeds), "ate_rmse_m": ates,
-          "jax_cpu_ate_rmse_m_by_tracker_seed": CAPSTONE_JAX_ATE_M,
+          "seconds": time.perf_counter() - t0,
+          "jax_tpu_route_ate_rmse_m_by_tracker_seed":
+              CAPSTONE_JAX_TPU_ROUTE_ATE_M,
+          "jax_cpu_route_ate_rmse_m_by_tracker_seed":
+              CAPSTONE_JAX_CPU_ROUTE_ATE_M,
           "nvidia_smi": nvidia_smi_line()})
     return 0
 
@@ -1982,6 +2128,70 @@ def capstone_step_parity(seed: int) -> int:
     return 0
 
 
+def _flat_arrays(out: dict, prefix: str, tree) -> None:
+    """Leaves of a tree of NamedTuples (numpy, `None` skipped) into `out`
+    under their field paths: `prefix/prior/lin/p`."""
+    if tree is None:
+        return
+    if isinstance(tree, tuple) and hasattr(tree, "_fields"):
+        for name, sub in zip(tree._fields, tree):
+            _flat_arrays(out, f"{prefix}/{name}", sub)
+    else:
+        out[prefix] = np.asarray(tree)
+
+
+def capstone_steps_dump(seed: int) -> int:
+    """`--capstone-step-parity SEED float32`: the `capstone` phase's run of
+    tracker seed SEED (float32, both kernels), with each device frame's
+    `vio_step` recorded: the state before it, its tracker measurements and
+    IMU, and the state after it, all copied to the host, into
+    `chiprun_out/capstone_f32_steps_seed{SEED}.npz`. On the CPU,
+    `tests/selection_route_reference.py parity` steps the JAX package's
+    `vio_step` on its TPU route from each recorded state on the same inputs
+    and prints where the two part."""
+    from anticipated_vins_mono_torch.models import estimator_device as ed
+    from anticipated_vins_mono_torch.ops import hopper_kernels as hk
+    from anticipated_vins_mono_torch.utils import device_vio_bench as dvb
+    from anticipated_vins_mono_torch.utils.convert import to_numpy_tree
+    arrays, step, n_steps = {}, ed.vio_step, [0]
+
+    def recorded(pr, st, *inputs, **kw):
+        n = n_steps[0]
+        _flat_arrays(arrays, f"{n}/before", to_numpy_tree(st))
+        for i, x in enumerate(inputs):
+            arrays[f"{n}/in/{i}"] = x.detach().cpu().numpy()
+        st, out = step(pr, st, *inputs, **kw)
+        _flat_arrays(arrays, f"{n}/after", to_numpy_tree(st))
+        n_steps[0] += 1
+        return st, out
+
+    hk.build_kernels()
+    ed.vio_step = recorded
+    try:
+        torch.cuda.synchronize()
+        hk.reset_launch_counts()
+        rows = dvb.main(duration=CAPSTONE_DURATION_S, kappa=30,
+                        dtype_str="float32", sel_impl="chol", device="cuda",
+                        tracker_seed=seed)
+        torch.cuda.synchronize()
+        counts = dict(hk.launch_counts)
+    finally:
+        ed.vio_step = step
+    want = capstone_launches("float32_schur_kernel", rows)
+    if counts != want:
+        raise AssertionError(f"capstone launched {counts}, wanted {want}")
+    os.makedirs("chiprun_out", exist_ok=True)
+    path = os.path.join("chiprun_out", f"capstone_f32_steps_seed{seed}.npz")
+    np.savez_compressed(path, handoff_frame=rows["handoff_frame"],
+                        ate_rmse_m=rows["ate_rmse_m"], **arrays)
+    emit({"phase": "capstone_steps_dump", "tracker_seed": seed,
+          "steps": n_steps[0], "path": path, "launches": counts,
+          **{k: rows[k] for k in ("ate_rmse_m", "fail_flags",
+                                  "handoff_frame", "n_frames_device")},
+          "nvidia_smi": nvidia_smi_line()})
+    return 0
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke.py needs a CUDA device: "
@@ -1991,6 +2201,11 @@ def main() -> int:
         return image_seed_sweep([int(a) for a in sys.argv[2:]])
     if len(sys.argv) > 2 and sys.argv[1] == "--capstone-seeds":
         return capstone_seed_sweep(sys.argv[2:])
+    if len(sys.argv) == 4 and sys.argv[1] == "--capstone-run":
+        return capstone_run(sys.argv[2], int(sys.argv[3]))
+    if sys.argv[1:2] == ["--capstone-step-parity"] and \
+            sys.argv[3:] == ["float32"]:
+        return capstone_steps_dump(int(sys.argv[2]))
     if len(sys.argv) > 2 and sys.argv[1] == "--capstone-step-parity":
         return capstone_step_parity(int(sys.argv[2]))
     if sys.argv[1:] == ["--euroc-runners"]:
@@ -2146,6 +2361,10 @@ def main() -> int:
         raise AssertionError(
             f"float64 chol and lowrank disagree: logdet {ld64} vs {ld64_lr}")
     overlap = lambda a, b: int((a * b.to(a.dtype)).sum())
+    # what the card's Cholesky leaves where float32 Ω is indefinite: NaN in
+    # the factor (LAPACK on the CPU leaves finite entries); "lowrank" makes
+    # that problem's gains NaN from `info` either way
+    L_f32, info_f32 = torch.linalg.cholesky_ex(rounds[0][0])
     eig64 = torch.linalg.eigvalsh(Om64)
     eig32 = torch.linalg.eigvalsh(OmF.double())
     emit({"phase": "select", "selected": n_sel, "candidates": 128,
@@ -2155,6 +2374,8 @@ def main() -> int:
           "f64_final_logdet": ld64,
           "f64_final_omega_eig_min_max": [float(eig64[0]), float(eig64[-1])],
           "f32_final_omega_eig_min_max": [float(eig32[0]), float(eig32[-1])],
+          "f32_omega_cholesky_ex": {"info": int(info_f32),
+                                    "factor_nan": int(L_f32.isnan().sum())},
           "f32_chol_overlap_with_blocked_plain_scoring": overlap(sel, sel_blocked),
           "f32_chol_overlap_with_unblocked_plain_scoring":
               overlap(sel, sel_unblocked),
