@@ -367,7 +367,7 @@ def select_informative(Omega: Tensor, Deltas: Tensor, probs: Tensor,
             H = (D // STATE_SIZE) - 1
             E = _pos_embedding(H, STATE_SIZE, D, dtype, device)   # [3H, D]
             Big = torch.einsum("ad,...fde,be->...fab", E, Deltas, E)
-            lam, V = torch.linalg.eigh(Big)
+            lam, V = lie.eigh_or_nan(Big)
             lam = torch.clamp(lam, min=0.0)
             Bs = V * torch.sqrt(lam)[..., None, :]                # [...,F,3H,3H]
             Bfull = torch.einsum("ad,...fab->...fdb", E, Bs)      # [...,F,D,r]

@@ -18,11 +18,12 @@ host reads one measurement a frame.
 
 Where the two differ:
 
-- RANSAC randomness: `jax.random` cannot be reproduced in torch, so
-  `ransac_essential_mask` takes its uniform draws `u` [iters, N] as an
-  argument and `tracker_step` draws them from a `torch.Generator` (or takes
-  them from the caller, which is how the tests hand it the JAX draws).
-  `TrackerState` has no PRNG key; `DeviceFeatureTracker` owns the generator.
+- RANSAC randomness: the state carries a PRNG key, as in the JAX package,
+  and `tracker_step` splits it and draws the uniforms from it with
+  `utils/threefry.py`, JAX's threefry-2x32 in torch: tracker seed k draws
+  the same values in both packages (float32 bit for bit). `tracker_step`
+  and `track_sequence` also take the draws from the caller (`u=`); the key
+  advances all the same.
 - `_occupancy` keeps the JAX scatter's index rules: an inactive slot is
   scattered at (−1, −1), which JAX wraps to (H−1, W−1), so that pixel is
   marked occupied whenever a slot is inactive (a reference property,
@@ -40,16 +41,16 @@ import torch
 from torch import Tensor
 
 from anticipated_vins_mono_torch.models import frontend as fe
-from anticipated_vins_mono_torch.ops import cameras
+from anticipated_vins_mono_torch.ops import cameras, lie
+from anticipated_vins_mono_torch.utils import threefry
 
 
-def ransac_uniforms(iters: int, n: int, generator: Optional[torch.Generator],
-                    dtype=torch.float32, device="cuda") -> Tensor:
-    """Uniform draws in [1e-7, 1 − 1e-7] for `ransac_essential_mask` (the
-    range of the JAX package's `jax.random.uniform` call)."""
-    u = torch.rand((iters, n), generator=generator, dtype=dtype,
-                   device=device)
-    return torch.clamp(u * (1.0 - 2e-7) + 1e-7, 1e-7, 1.0 - 1e-7)
+def ransac_uniforms(key: Tensor, iters: int, n: int,
+                    dtype=torch.float32) -> Tensor:
+    """The draws `ransac_essential_mask` takes, from the key the step
+    uses: the JAX package's `jax.random.uniform(key, (iters, n), dtype,
+    1e-7, 1 − 1e-7)`."""
+    return threefry.uniform(key, (iters, n), dtype, 1e-7, 1.0 - 1e-7)
 
 
 def ransac_essential_mask(x1: Tensor, x2: Tensor, ok: Tensor, u: Tensor,
@@ -79,7 +80,7 @@ def ransac_essential_mask(x1: Tensor, x2: Tensor, ok: Tensor, u: Tensor,
                      p2[..., 1],
                      p1[..., 0], p1[..., 1], o], dim=-1)       # [K,8,9]
     AtA = torch.einsum("kni,knj->kij", A, A)
-    _, V = torch.linalg.eigh(AtA)                              # ascending
+    _, V = lie.eigh_or_nan(AtA)                                # ascending
     E = V[..., 0].reshape(iters, 3, 3)
     # rank-2 projection (findFundamentalMat zeroes the smallest s.v.)
     U, S, Vt = torch.linalg.svd(E)
@@ -111,6 +112,7 @@ class TrackerState(NamedTuple):
     norm: Tensor          # [N,2] normalized-plane position
     t: Tensor             # 0-d f32 time of this state's frame
     next_id: Tensor       # 0-d i32
+    key: Tensor           # [2] PRNG key for RANSAC sampling (uint32 words)
 
 
 class TrackerDeviceParams(NamedTuple):
@@ -145,9 +147,10 @@ def _occupancy(shape, pts: Tensor, active: Tensor, min_dist: int) -> Tensor:
     return fe._window_max_same(occ, min_dist, 0.0)
 
 
-def tracker_init(cam, params: TrackerDeviceParams, img, t) -> TrackerState:
+def tracker_init(cam, params: TrackerDeviceParams, img, t,
+                 seed: int = 0) -> TrackerState:
     """First frame: detect into every slot. The image goes to the camera's
-    device as float32."""
+    device as float32; `seed` makes the RANSAC key (`jax.random.PRNGKey`)."""
     N = params.max_features
     eq, pyr = _prep(fe.as_image(img, cam.fx.device), params.levels)
     occ = torch.zeros_like(eq)
@@ -158,19 +161,20 @@ def tracker_init(cam, params: TrackerDeviceParams, img, t) -> TrackerState:
         ids=torch.arange(N, dtype=torch.int32, device=eq.device),
         life=val.to(torch.int32), score=sc, norm=norm,
         t=torch.tensor(t, dtype=torch.float32, device=eq.device),
-        next_id=torch.sum(val).to(torch.int32))
+        next_id=torch.sum(val).to(torch.int32),
+        key=threefry.prng_key(seed, eq.device))
 
 
 def tracker_step(cam, params: TrackerDeviceParams, state: TrackerState,
-                 img, t, u: Optional[Tensor] = None,
-                 generator: Optional[torch.Generator] = None):
+                 img, t, u: Optional[Tensor] = None):
     """One frame through the full front end; returns (state', measurement).
 
     measurement = (ids [N], rays [N,3], vel [N,2], prob [N], active [N]) —
     the PointCloud channel contract [id,u,v,vx,vy,prob]
     (feature_tracker_ros.cpp:75-115) as fixed-size tensors. `u`: the
-    RANSAC's uniform draws [ransac_iters, N]; drawn from `generator` when
-    not given.
+    RANSAC's uniform draws [ransac_iters, N]. The state's key is split as
+    in the JAX package: the second key draws `u` when it is not given, the
+    first is carried.
     """
     p = params
     N = p.max_features
@@ -186,11 +190,12 @@ def tracker_step(cam, params: TrackerDeviceParams, state: TrackerState,
 
     # -- outlier rejection on the normalized plane (rejectWithF)
     n_new = cameras.lift_projective(cam, new_pts)[:, :2]
+    key, k1 = threefry.split(state.key)
     if u is None:
-        u = ransac_uniforms(p.ransac_iters, N, generator, device=dev)
+        u = ransac_uniforms(k1, p.ransac_iters, N, state.norm.dtype)
     ok = ransac_essential_mask(state.norm, n_new, ok, u,
                                thresh=p.ransac_thresh_px / cam.fx)
-    return _top_up(cam, p, state, eq, pyr, new_pts, ok, t)
+    return _top_up(cam, p, state._replace(key=key), eq, pyr, new_pts, ok, t)
 
 
 def _top_up(cam, p: TrackerDeviceParams, state: TrackerState, eq: Tensor,
@@ -245,20 +250,19 @@ def _refill(cam, p: TrackerDeviceParams, state: TrackerState, pyr: tuple,
 
     new_state = TrackerState(pyr=pyr, pts=pts_out, active=active, ids=ids,
                              life=life, score=score, norm=norm, t=t,
-                             next_id=next_id)
+                             next_id=next_id, key=state.key)
     return new_state, (ids, rays, vel, prob, active)
 
 
 def track_sequence(cam, params: TrackerDeviceParams, state: TrackerState,
-                   imgs, ts, u: Optional[Tensor] = None,
-                   generator: Optional[torch.Generator] = None):
+                   imgs, ts, u: Optional[Tensor] = None):
     """The tracker over a frame stack (`imgs` [T,H,W], `ts` [T]), frame after
     frame. `u` [T, ransac_iters, N]: each frame's RANSAC draws (else drawn
-    from `generator`). Returns (final state, stacked measurements)."""
+    from the state's key). Returns (final state, stacked measurements)."""
     meas = []
     for k in range(len(ts)):
         state, m = tracker_step(cam, params, state, imgs[k], float(ts[k]),
-                                None if u is None else u[k], generator)
+                                None if u is None else u[k])
         meas.append(m)
     return state, tuple(torch.stack(x) for x in zip(*meas))
 
@@ -267,8 +271,8 @@ class DeviceFeatureTracker:
     """Host facade producing the same {id: (ray, vel, prob)} dict as
     `frontend.FeatureTracker.process`, with all per-frame work on the
     camera's device and one read of the measurement a frame. The RANSAC
-    draws come from a `torch.Generator` seeded with `seed`, on that device;
-    `process(img, t, u=...)` takes them from the caller instead."""
+    draws come from the key `tracker_init` makes from `seed`, as in the JAX
+    package; `process(img, t, u=...)` takes them from the caller instead."""
 
     def __init__(self, cam, params: TrackerDeviceParams = TrackerDeviceParams(),
                  seed: int = 0):
@@ -276,12 +280,11 @@ class DeviceFeatureTracker:
         self.params = params
         self.seed = seed
         self.state = None
-        self.generator = torch.Generator(device=cam.fx.device)
-        self.generator.manual_seed(seed)
 
     def process(self, img, t: float, u: Optional[Tensor] = None) -> dict:
         if self.state is None:
-            self.state = tracker_init(self.cam, self.params, img, t)
+            self.state = tracker_init(self.cam, self.params, img, t,
+                                      self.seed)
             ids = self.state.ids.cpu().numpy()
             act = self.state.active.cpu().numpy()
             rays = np.concatenate([self.state.norm.cpu().numpy(),
@@ -291,7 +294,7 @@ class DeviceFeatureTracker:
             return {int(i): (rays[k], np.zeros(2), float(prob[k]))
                     for k, i in enumerate(ids) if act[k]}
         self.state, meas = tracker_step(self.cam, self.params, self.state,
-                                        img, t, u, self.generator)
+                                        img, t, u)
         ids, rays, vel, prob, active = (m.cpu().numpy() for m in meas)
         return {int(i): (rays[k], vel[k], float(prob[k]))
                 for k, i in enumerate(ids) if active[k]}

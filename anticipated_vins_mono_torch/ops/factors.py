@@ -205,10 +205,15 @@ def tangent_jacobian(res_fn, poses: tuple, linear_args: tuple,
     The derivative is the forward-mode one of residual∘boxplus at δ=0, as in
     the JAX package. All K tangent directions are evaluated in ONE
     `torch.func.jvp` call: they ride as an extra leading dimension of the
-    inputs. The tangent of the pose boxplus at δ=0 is written out — δp for
-    the position, q ⊗ [0, δθ/2] for the quaternion (the normalisations have
-    zero derivative at a unit quaternion) — so the autodiff starts at the
-    residual itself.
+    inputs, with one more row that carries the pose as given and no tangent,
+    whose primal output is the residual. Like the JAX package's `jacfwd`,
+    the Jacobian rows are taken at the boxplus of δ=0: the position as given
+    and the quaternion renormalised (q ⊗ deltaQ(0) = q exactly), with the
+    tangent of that boxplus written out, q ⊗ [0, δθ/2] through the
+    normalisation. In float32 this linearization point decides the rounding
+    of a Jacobian column that is zero in exact arithmetic (the extrinsic's
+    translation along the rotation axis of a planar run), and with it the
+    first solve's step along that unobservable direction.
 
     Returns (residual [...,R], [J_pose [...,R,6]..., J_linear [...,R,dim]...]),
     a scalar linear arg giving [...,R].
@@ -219,20 +224,27 @@ def tangent_jacobian(res_fn, poses: tuple, linear_args: tuple,
     ref = poses[0].p
     lin_dims = [a.shape[-1] if a.dim() > nb else 1 for a in linear_args]
     K = 6 * n_p + sum(lin_dims)
-    eye = torch.eye(K, dtype=ref.dtype, device=ref.device)
-    eye = eye.reshape((K,) + (1,) * nb + (K,))           # [K,1..,K]
+    # K direction rows, then the residual's row (no tangent)
+    eye = torch.eye(K + 1, K, dtype=ref.dtype, device=ref.device)
+    eye = eye.reshape((K + 1,) + (1,) * nb + (K,))       # [K+1,1..,K]
 
-    lead = (K,) + tuple(batch)
-    up = lambda x: x[None].expand((K,) + tuple(x.shape))
+    lead = (K + 1,) + tuple(batch)
+    up = lambda x: x[None].expand((K + 1,) + tuple(x.shape))
     primals, tangents = [], []
     for k, pose in enumerate(poses):
         e = eye[..., 6 * k: 6 * k + 6]
         tp = e[..., :3].expand(lead + (3,))
+        # d/dδθ of normalize(q ⊗ deltaQ(δθ)) at 0: t = q ⊗ [0, e/2], then
+        # the normalisation's tangent t/‖q‖ − q (q·t)/‖q‖³
         half = torch.cat([torch.zeros_like(e[..., :1]), 0.5 * e[..., 3:6]],
                          dim=-1)
-        tq = lie.quat_mul(pose.q[None], half)             # [K,...,4]
-        # a dual tensor's primal must not alias itself: materialise the copy
-        primals += [up(pose.p).contiguous(), up(pose.q).contiguous()]
+        t = lie.quat_mul(pose.q[None], half)              # [K+1,...,4]
+        norm = torch.linalg.norm(pose.q, dim=-1, keepdim=True)
+        tq = t / norm - pose.q * (torch.sum(pose.q * t, dim=-1, keepdim=True)
+                                  / norm ** 3)
+        qn = (pose.q / norm)[None].expand((K,) + tuple(pose.q.shape))
+        primals += [up(pose.p).contiguous(),
+                    torch.cat([qn, pose.q[None]], dim=0)]
         tangents += [tp, tq]
     off = 6 * n_p
     for a, d in zip(linear_args, lin_dims):
@@ -248,11 +260,11 @@ def tangent_jacobian(res_fn, poses: tuple, linear_args: tuple,
         return res_fn(*ps, *prim[2 * n_p:], *consts_up)
 
     res_k, jac_k = jvp(f, tuple(primals), tuple(tangents))
-    jac = jac_k.movedim(0, -1)                            # [...,R,K]
+    jac = jac_k[:K].movedim(0, -1)                        # [...,R,K]
     jacs = [jac[..., 6 * k: 6 * k + 6] for k in range(n_p)]
     off = 6 * n_p
     for a, d in zip(linear_args, lin_dims):
         jacs.append(jac[..., off: off + d] if a.dim() > nb
                     else jac[..., off])
         off += d
-    return res_k[0], jacs
+    return res_k[K], jacs

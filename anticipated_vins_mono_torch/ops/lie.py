@@ -267,6 +267,29 @@ def cholesky_or_nan(A: Tensor) -> Tensor:
                        torch.full_like(L, float("nan")), L)
 
 
+def eigh_or_nan(A: Tensor):
+    """`torch.linalg.eigh` of symmetric [...,n,n] that does not raise:
+    where the solver does not converge on a matrix (cuSOLVER's batched
+    Jacobi solver can fail on an ill-conditioned small matrix), that matrix
+    is taken again alone, and its eigenvalues and eigenvectors are NaN if it
+    fails again, as `jnp.linalg.eigh` returns where LAPACK fails."""
+    try:
+        return torch.linalg.eigh(A)
+    except torch.linalg.LinAlgError:
+        pass
+    flat = A.reshape((-1,) + A.shape[-2:])
+    w = torch.full(flat.shape[:-1], float("nan"), dtype=A.dtype,
+                   device=A.device)
+    V = torch.full_like(flat, float("nan"))
+    for i in range(flat.shape[0]):
+        try:
+            w[i], V[i] = torch.linalg.eigh(flat[i])
+        except torch.linalg.LinAlgError:
+            pass
+    return torch.return_types.linalg_eigh(
+        (w.reshape(A.shape[:-1]), V.reshape(A.shape)))
+
+
 def logdet_psd(M: Tensor) -> Tensor:
     """log-determinant of an SPD matrix [...,n,n] via Cholesky:
     2·Σ log diag(L). A matrix that is not positive definite gives NaN

@@ -56,7 +56,7 @@ def triangulate(state: WindowState, pts: Tensor, mask: Tensor,
         A = torch.cat([r0, r1], dim=1) * \
             torch.cat([mask, mask], dim=1)[..., None]     # [F,2NF,4]
         # smallest right singular vector via eigh of AᵀA (4x4)
-        _, V = torch.linalg.eigh(A.mT @ A)
+        _, V = lie.eigh_or_nan(A.mT @ A)
         X = V[..., :, 0]
         x3 = X[..., 3]
         depth = X[..., 2] / torch.where(x3.abs() < 1e-12,

@@ -17,8 +17,8 @@ estimator, and `host_estimator_to_numpy` reads them back. For the image
 path: `camera_from_numpy` (any of the four camera models),
 `box_world_from_numpy` (the renderer's world) and
 `tracker_state_{from,to}_numpy` (the device tracker's state: the previous
-pyramid, the slots, ids, the float32 time; the JAX state's PRNG key stays
-behind, the port's draws come from a `torch.Generator`).
+pyramid, the slots, ids, the float32 time and the RANSAC's PRNG key, so that
+a JAX tracker state carried across continues on the same draws).
 """
 
 from __future__ import annotations
@@ -181,15 +181,18 @@ def box_world_from_numpy(world, device="cuda") -> BoxWorld:
 def tracker_state_from_numpy(state, device="cuda") -> TrackerState:
     """A device tracker's state (the JAX `TrackerState` with numpy leaves,
     or the port's) → the port's `TrackerState`, every field copied, dtypes
-    kept (`ids`, `life`, `next_id` int32, `t` float32). Fields are taken by
-    name, so the JAX state's `key` is left out."""
+    kept (`ids`, `life`, `next_id` int32, `t` float32); the key's two
+    uint32 words as int64, the port's key format."""
     dev = torch.device(device)
     vals = {f: _to_tensor(getattr(state, f), dev)
-            for f in TrackerState._fields if f != "pyr"}
+            for f in TrackerState._fields if f not in ("pyr", "key")}
     vals["pyr"] = tuple(_to_tensor(x, dev) for x in state.pyr)
+    vals["key"] = _to_tensor(np.asarray(state.key).astype(np.int64), dev)
     return TrackerState(**vals)
 
 
 def tracker_state_to_numpy(state: TrackerState) -> TrackerState:
-    """The inverse: the same container holding numpy arrays (copies)."""
-    return to_numpy_tree(state)
+    """The inverse: the same container holding numpy arrays (copies), the
+    key as uint32 words, as the JAX package holds it."""
+    out = to_numpy_tree(state)
+    return out._replace(key=out.key.astype(np.uint32))

@@ -22,8 +22,9 @@ others. `accum` defaults to "f64" (the JAX package's "df32" maps to f64
 here), `slot_evict` and `sel_impl` are arguments (the JAX package reads
 `ANT_SLOT_EVICT` / `ANT_SELECT_IMPL`), `backend` is the torch device, and
 `device` says where it runs; `window` / `max_feats` shrink the window for
-tests (the deployment's 10 and 128 by default), `tracker_seed` seeds the
-tracker's RANSAC draws (the JAX package's tracker takes its own key), and
+tests (the deployment's 10 and 128 by default), `tracker_seed` is the seed
+of the tracker's RANSAC key (the JAX runner's tracker takes seed 0: the
+same seed draws the same values in both packages), and
 `fused_schur` picks the window solve's Schur step (default: the float32
 kernel for float32 on the card; False takes the float64 Schur path, the
 JAX runner's default `pallas_schur=False`). The default mode's row adds
@@ -125,7 +126,7 @@ def warm_up(est, tracker, imgs, ts, imu, f: int, min_left: int) -> int:
 
 
 def run_device(cam, tparams, pr, tst, vst, imgs, ts, imu, lo: int, hi: int,
-               dtype, generator, timed: bool = False):
+               dtype, timed: bool = False):
     """`tracker_step` → `vio_step` over frames [lo, hi). Returns the final
     (tracker state, vio state), the outputs stacked over the frames (p, q,
     cost, keyframe, fail; on the device) and, when `timed`, the per-frame
@@ -137,7 +138,7 @@ def run_device(cam, tparams, pr, tst, vst, imgs, ts, imu, lo: int, hi: int,
     for n, g in enumerate(range(lo, hi)):
         t0 = time.perf_counter()
         tst, (ids, rays, vel, prob, active) = td.tracker_step(
-            cam, tparams, tst, imgs[g], float(ts[g]), generator=generator)
+            cam, tparams, tst, imgs[g], float(ts[g]))
         if timed:
             _sync(device)
         t1 = time.perf_counter()
@@ -213,11 +214,10 @@ def main(duration: float = 20.0, width: int = 752, height: int = 480,
     pr = ed.DeviceVioParams(wcfg=wcfg, sel_cfg=sel_cfg, slot_evict=slot_evict,
                             sel_impl=sel_impl)
     print(f"hand-off at frame {f}", flush=True)
-    gen = tracker.generator
 
     def run(tst, vst_, lo, hi, timed=False):
         return run_device(cam, tparams, pr, tst, vst_, imgs, ts, imu, lo, hi,
-                          dtype, gen, timed)
+                          dtype, timed)
 
     if corrupt_at:
         # ---- failure injection: run, corrupt the device carry mid-run
@@ -236,8 +236,7 @@ def main(duration: float = 20.0, width: int = 752, height: int = 480,
                                        device=device)
             for gdbg in range(kc, min(kc + 40, n_total)):
                 tst_d, (ids_, rays_, vel_, prob_, act_) = td.tracker_step(
-                    cam, tparams, tst_d, imgs[gdbg], float(ts[gdbg]),
-                    generator=gen)
+                    cam, tparams, tst_d, imgs[gdbg], float(ts[gdbg]))
                 vst_d, o = ed.vio_step(
                     pr, vst_d, ids_, rays_.to(dtype), vel_.to(dtype),
                     prob_.to(dtype), act_, *(j(x[gdbg]) for x in imu),

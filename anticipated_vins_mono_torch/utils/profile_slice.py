@@ -247,10 +247,9 @@ def profile_capstone(reps: int, warm_frames: int = 15) -> dict:
                             sel_impl="chol")
     (tst, st), outs, _ = dvb.run_device(
         cam, tparams, pr, tracker.state, ed.vio_init_from_host(est), imgs,
-        ts, imu, f, f + warm_frames, f32, tracker.generator)
+        ts, imu, f, f + warm_frames, f32)
     g = f + warm_frames
-    step = lambda: td.tracker_step(cam, tparams, tst, imgs[g], float(ts[g]),
-                                   generator=tracker.generator)
+    step = lambda: td.tracker_step(cam, tparams, tst, imgs[g], float(ts[g]))
     _, (ids, rays, vel, prob, active) = step()
     pk = (ids, rays, vel, prob, active) + tuple(
         torch.tensor(x[g], dtype=f32, device="cuda") for x in imu)
@@ -405,17 +404,18 @@ def profile_image(frames: int = 10, warm_frames: int = 15) -> dict:
     frames past the first full window through the facades, then `frames`
     frames with the tracker's step taken apart into its stages (the step's
     own functions on its own inputs, each run once), each between two
-    synchronises. `occupancy_detect_ms` is `_detect_free` (occupancy +
-    detection); `packaging_ms` is `_refill` (slot bookkeeping,
-    undistortion, velocity, probability); `node_ms` is `push_features`
-    (alignment + `process_frame`)."""
+    synchronises. `ransac_draws_ms` is the key's split and the RANSAC's
+    uniforms (`utils/threefry`); `occupancy_detect_ms` is `_detect_free`
+    (occupancy + detection); `packaging_ms` is `_refill` (slot
+    bookkeeping, undistortion, velocity, probability); `node_ms` is
+    `push_features` (alignment + `process_frame`)."""
     from anticipated_vins_mono_torch.models import frontend as fe
     from anticipated_vins_mono_torch.models import tracker_device as td
     from anticipated_vins_mono_torch.models.feature_selector import \
         AttentionSelector
     from anticipated_vins_mono_torch.models.node import VioNode
     from anticipated_vins_mono_torch.ops import cameras
-    from anticipated_vins_mono_torch.utils import render
+    from anticipated_vins_mono_torch.utils import render, threefry
     traj, cam, world, rays, R_all, stride = dep.image_scene("cuda")
     tp = dep.tracker_params()
     tracker = td.DeviceFeatureTracker(cam, tp)
@@ -458,8 +458,10 @@ def profile_image(frames: int = 10, warm_frames: int = 15) -> dict:
             new_pts, lk_ok = timed("lk_track", fe.lk_track, st.pyr, pyr,
                                    st.pts, st.active.float(),
                                    levels=tp.levels)
-            u = td.ransac_uniforms(tp.ransac_iters, tp.max_features,
-                                   tracker.generator, device="cuda")
+            key, k1 = timed("ransac_draws", threefry.split, st.key)
+            u = timed("ransac_draws", td.ransac_uniforms, k1, tp.ransac_iters,
+                      tp.max_features)
+            st = st._replace(key=key)
             ok = timed("ransac", lambda: td.ransac_essential_mask(
                 st.norm, cameras.lift_projective(cam, new_pts)[:, :2],
                 lk_ok & st.active, u, thresh=tp.ransac_thresh_px / cam.fx))
@@ -485,16 +487,15 @@ def profile_image(frames: int = 10, warm_frames: int = 15) -> dict:
         whole.append((time.perf_counter() - t0) * 1e3)
     out = {f"{name}_ms": ms / frames for name, ms in sorted(spent.items())}
     out["tracker_stages_ms"] = sum(out[f"{n}_ms"] for n in (
-        "prep", "lk_track", "ransac", "occupancy_detect", "packaging",
-        "read_measurement"))
+        "prep", "lk_track", "ransac_draws", "ransac", "occupancy_detect",
+        "packaging", "read_measurement"))
     out["frame_ms"] = sum(whole) / frames
     out["frame_min_max_ms"] = [min(whole), max(whole)]
     out["active_slots"] = int(tracker.state.active.sum())
     k = (warm + frames) * stride
     img = render.render_frame(world, cam, rays, traj.p[k], R_all[k])
     out["tracker_step_profile"] = device_busy(lambda: td.tracker_step(
-        cam, tp, tracker.state, img, float(traj.t[k]),
-        generator=tracker.generator))
+        cam, tp, tracker.state, img, float(traj.t[k])))
     out["render_profile"] = device_busy(lambda: render.render_frame(
         world, cam, rays, traj.p[k], R_all[k]))
     return out

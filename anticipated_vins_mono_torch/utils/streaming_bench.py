@@ -76,8 +76,6 @@ class StreamPipeline:
             world, self.cam, rays, traj.p[k], R_all[k]) for k in ks])
         self.ts = (ks / 200.0).astype(np.float32)
         self.tparams = td.TrackerDeviceParams(max_features=n_feats)
-        self.generator = torch.Generator(device=device)
-        self.generator.manual_seed(0)
         f32 = torch.float32
         self.wcfg = WindowConfig(window=window, max_feats=128, iters=8,
                                  fused_schur=device.type == "cuda")
@@ -102,12 +100,14 @@ class StreamPipeline:
                                               device=device), z(F))
 
     def tracker_init(self):
+        """The tracker on the first frame, RANSAC key seed 0 (the JAX
+        runner's `tracker_init` default)."""
         return td.tracker_init(self.cam, self.tparams, self.imgs[0],
-                               float(self.ts[0]))
+                               float(self.ts[0]), seed=0)
 
     def track(self, state, k: int):
         return td.tracker_step(self.cam, self.tparams, state, self.imgs[k],
-                               float(self.ts[k]), generator=self.generator)
+                               float(self.ts[k]))
 
     def select(self, rays_c, probs_c, active_c):
         p, q, v, acc, gyr, ba, bg, tic, qic = self.state_k1

@@ -11,6 +11,10 @@
     python3 chip_smoke.py --capstone-seeds float32_cpu_route 0 1 2 3 4
                                     # "chol" scored by a Cholesky (the JAX
                                     # package's CPU route), no logdet launch
+    python3 chip_smoke.py --capstone-seeds float32_schur_kernel 0 1 2 3 4 \
+        --record-tracker            # and each run's tracker stream into
+                                    # chiprun_out/ (tests/
+                                    # tracker_stream_reference.py --card)
     python3 chip_smoke.py --capstone-step-parity 0   # vio_step card vs CPU
     python3 chip_smoke.py --capstone-step-parity 0 float32   # the float32
                                     # capstone run's steps, recorded for
@@ -137,15 +141,21 @@ LOOP_PATH_RATIO_BOUND = 1.782
 # seed 0 alone (ROADMAP queue C 11): it is 1.5 times the largest reading of
 # `tests/loop_reference.py capstone --duration 8` over seeds 0-4, the JAX
 # package's runner on the CPU with its own float64 Schur path
-# (CAPSTONE_JAX_CPU_ROUTE_ATE_M["f64_schur"]); seeds 1-4 read above it on
-# the card. The JAX package scores "chol" by two routes: on the CPU a
-# Cholesky gives NaN on this Ω and the greedy falls back to the κ̄ most
-# probable features; on a TPU its Pallas logdet kernel floors the pivots at
-# 1e-30 and the greedy picks by the float32 gains, as the card's kernel does.
-# `tests/selection_route_reference.py --duration 8 --seeds 0 1 2 3 4` reads
-# the TPU route (both Pallas kernels in interpret mode), `--route cpu` the
-# CPU route with the Pallas Schur kernel. Both spread as far as each other,
-# below the card's: the route does not explain the card's spread
+# (CAPSTONE_JAX_CPU_ROUTE_ATE_M["f64_schur"]). The JAX package scores "chol"
+# by two routes: on the CPU a Cholesky gives NaN on this Ω and the greedy
+# falls back to the κ̄ most probable features; on a TPU its Pallas logdet
+# kernel floors the pivots at 1e-30 and the greedy picks by the float32
+# gains, as the card's kernel does (`tests/selection_route_reference.py`).
+# Since the tracker draws JAX's threefry stream, seed k is the JAX tracker's
+# seed k. Why the readings scatter (queue C 11,
+# `tests/tracker_stream_reference.py`): at this speed the image moves
+# ~68 px a frame, past the 3-level LK's 56 px reach, so the tracks are
+# wrong in both packages; the window's camera-IMU translation along the yaw
+# axis carries no information (its diagonal 4e-28 in float64), and the
+# first solve sends it 1e4-1e5 m away by float32 rounding, which decouples
+# the wrong vision from the IMU; which way it goes decides the ATE, and
+# the port rounds as JAX does only with its Jacobians taken at JAX's
+# linearization point (queue C 16)
 CAPSTONE_DURATION_S = 8.0
 CAPSTONE_SEEDS = (0, 1, 2, 3, 4)
 CAPSTONE_BOUND_SEEDS = (0,)
@@ -1189,23 +1199,24 @@ def image_card_vs_cpu(n_frames=5):
     detections exact; then each frame from the card tracker's state (copied
     to the CPU for the CPU step), LK alone on both (`ok` exact, the
     LK-tracked points held to `LK_*`, the rounding-sensitive ones counted
-    by LK in float64 on the CPU), and the whole step with the same
-    RANSAC draws: ids and active flags exact wherever the two RANSACs decide
-    alike; where one decision flips, each later stage from the same inputs
-    instead: RANSAC on the CPU's LK points (mask exact), top-up from the
-    CPU's mask (ids, active exact)."""
+    by LK in float64 on the CPU), the RANSAC's draws, each side's from its
+    own copy of the state's key (float32 bit for bit, every frame; the
+    carried keys equal), and the whole step on those draws: ids and active
+    flags exact wherever the two RANSACs decide alike; where one decision
+    flips, each later stage from the same inputs instead: RANSAC on the
+    CPU's LK points (mask exact), top-up from the CPU's mask (ids, active
+    exact)."""
     from anticipated_vins_mono_torch.models import frontend as fe
     from anticipated_vins_mono_torch.models import tracker_device as td
     from anticipated_vins_mono_torch.ops import cameras
     from anticipated_vins_mono_torch.utils import convert
     from anticipated_vins_mono_torch.utils import deployment as dep
-    from anticipated_vins_mono_torch.utils import render
+    from anticipated_vins_mono_torch.utils import render, threefry
 
     scenes = {dev: dep.image_scene(dev, SEED) for dev in ("cuda", "cpu")}
     traj, _, _, _, R_all, stride = scenes["cpu"]
     cam_c, cam_p = scenes["cuda"][1], scenes["cpu"][1]
     tp = dep.tracker_params()
-    gen = torch.Generator().manual_seed(SEED)
     share, lk, devs, flips = 1.0, [], [], 0
     state = None
     for f in range(n_frames):
@@ -1217,10 +1228,10 @@ def image_card_vs_cpu(n_frames=5):
         img = imgs["cuda"]
         t = float(traj.t[k])
         if state is None:
-            state = td.tracker_init(cam_c, tp, img, t)
-            cpu0 = td.tracker_init(cam_p, tp, img.cpu(), t)
+            state = td.tracker_init(cam_c, tp, img, t, seed=SEED)
+            cpu0 = td.tracker_init(cam_p, tp, img.cpu(), t, seed=SEED)
             for a, b in ((state.ids, cpu0.ids), (state.active, cpu0.active),
-                         (state.pts, cpu0.pts)):
+                         (state.pts, cpu0.pts), (state.key, cpu0.key)):
                 if not torch.equal(a.cpu(), b):
                     raise AssertionError("image: tracker_init card vs CPU")
             continue
@@ -1247,10 +1258,17 @@ def image_card_vs_cpu(n_frames=5):
                    "sensitive": int(sens.sum()),
                    "over_0.05px": int((dev > LK_FAR_PX).sum()),
                    "max_abs_px": float(dev.max())})
-        u = td.ransac_uniforms(tp.ransac_iters, tp.max_features, gen,
-                               device="cpu")
-        nxt_c, m_c = td.tracker_step(cam_c, tp, state, img, t, u=u.cuda())
-        nxt_p, m_p = td.tracker_step(cam_p, tp, st_p, img.cpu(), t, u=u)
+        u_c = td.ransac_uniforms(threefry.split(state.key)[1],
+                                 tp.ransac_iters, tp.max_features)
+        u = td.ransac_uniforms(threefry.split(st_p.key)[1], tp.ransac_iters,
+                               tp.max_features)
+        if not torch.equal(u_c.cpu().view(torch.int32), u.view(torch.int32)):
+            raise AssertionError(f"image: RANSAC draws card vs CPU differ "
+                                 f"at frame {f}")
+        nxt_c, m_c = td.tracker_step(cam_c, tp, state, img, t)
+        nxt_p, m_p = td.tracker_step(cam_p, tp, st_p, img.cpu(), t)
+        if not torch.equal(nxt_c.key.cpu(), nxt_p.key):
+            raise AssertionError(f"image: carried keys differ at frame {f}")
         if not all(torch.equal(a.cpu(), b)
                    for a, b in ((m_c[0], m_p[0]), (m_c[4], m_p[4]))):
             flips += 1
@@ -1260,7 +1278,7 @@ def image_card_vs_cpu(n_frames=5):
                 ok_p, u, thresh=thr)
             mask_c = td.ransac_essential_mask(
                 state.norm, cameras.lift_projective(
-                    cam_c, np_p.cuda())[:, :2], ok_p.cuda(), u.cuda(),
+                    cam_c, np_p.cuda())[:, :2], ok_p.cuda(), u_c,
                 thresh=tp.ransac_thresh_px / cam_c.fx)
             if not torch.equal(mask_c.cpu(), mask_p):
                 raise AssertionError(f"image: RANSAC differs at frame {f}")
@@ -1284,8 +1302,10 @@ def image_card_vs_cpu(n_frames=5):
     return {"frames": n_frames, "render_share_within_1e-4": share,
             "lk_per_frame": lk, "lk_median_abs_px": median,
             "ransac_flips": flips,
+            "ransac_draws_bit_exact_frames": n_frames - 1,
             "tolerance": f"render share >= 0.999 within 1e-4; frame 0's "
-                         f"detections, ids, active exact; LK ok exact; per "
+                         f"detections, ids, active, key exact; the RANSAC "
+                         f"draws bit for bit every frame; LK ok exact; per "
                          f"frame no more LK-tracked points over {LK_FAR_PX} "
                          f"px than are rounding-sensitive (CPU float64 vs "
                          f"float32 over {LK_SENSITIVE_PX} px), none over "
@@ -1322,7 +1342,7 @@ def phase_image(hk, smi):
     the first frames."""
     from anticipated_vins_mono_torch.models import tracker_device as td
     from anticipated_vins_mono_torch.utils import deployment as dep
-    from anticipated_vins_mono_torch.utils import render
+    from anticipated_vins_mono_torch.utils import render, threefry
     from anticipated_vins_mono_torch.utils.profile_slice import device_busy
 
     run = drive_image(hk, torch.float32)
@@ -1337,8 +1357,14 @@ def phase_image(hk, smi):
     img = render.render_frame(world, cam, rays, traj.p[k], R_all[k])
     state = tracker.state
     prof = device_busy(lambda: td.tracker_step(
-        cam, tracker.params, state, img, float(traj.t[k]),
-        generator=tracker.generator))
+        cam, tracker.params, state, img, float(traj.t[k])))
+    # the same step with its RANSAC draws handed over: what the key's split
+    # and the threefry draws add to the step
+    u = td.ransac_uniforms(threefry.split(state.key)[1],
+                           tracker.params.ransac_iters,
+                           tracker.params.max_features)
+    prof_u = device_busy(lambda: td.tracker_step(
+        cam, tracker.params, state, img, float(traj.t[k]), u=u))
     vs_cpu = image_card_vs_cpu()
     drop = ("active_per_frame", "ms_per_frame_after_5_solved", "timed_frames")
     emit({"phase": "image", "frames": run["frames"], "width": cam.width,
@@ -1352,7 +1378,9 @@ def phase_image(hk, smi):
           "min_active_from_frame_2": min(run["active_per_frame"][2:]),
           "ate_bound_m": IMAGE_ATE_BOUND_M,
           "jax_cpu_ate_rmse_m_by_tracker_seed": IMAGE_JAX_ATE_M,
-          "tracker_step_profile": prof, "card_vs_cpu": vs_cpu,
+          "tracker_step_profile": prof,
+          "tracker_step_profile_draws_handed_over": prof_u,
+          "card_vs_cpu": vs_cpu,
           "nvidia_smi": smi})
     return run["counts"]
 
@@ -1553,14 +1581,50 @@ def capstone_launches(variant: str, rows) -> dict | None:
             if f32 and fused_schur is not False else 0}
 
 
-def capstone_run(variant: str, seed: int) -> int:
-    """`--capstone-run VARIANT SEED`: one capstone run in this process (the
-    `capstone` phase and `--capstone-seeds` start one process per run). The
-    launch counts are set to 0 just before the runner and read just after;
-    the kernel entry points record their shapes. `float32_cpu_route` scores
-    "chol" through `lie.logdet_psd` (a Cholesky: NaN where Ω + p·Δ is not
-    positive definite, then the backfill), the JAX package's CPU route, for
-    this run only. Prints one line `{"capstone_run": {...}}`."""
+def record_tracker_stream(td, frames: list):
+    """Wrap `tracker_init` and `tracker_step` of the tracker module `td` so
+    that each frame's measurement (ids, rays, vel, prob, active; the first
+    frame's as `DeviceFeatureTracker.process` forms it) is appended to
+    `frames`, copied to the host. Returns a function that puts them back."""
+    init, step = td.tracker_init, td.tracker_step
+
+    def host(*meas):
+        frames.append(tuple(x.cpu().numpy() for x in meas))
+
+    def tracker_init(*args, **kw):
+        st = init(*args, **kw)
+        host(st.ids, torch.cat([st.norm, torch.ones_like(st.norm[:, :1])],
+                               -1), torch.zeros_like(st.norm),
+             st.score / torch.clamp(st.score.max(), min=1e-9), st.active)
+        return st
+
+    def tracker_step(*args, **kw):
+        st, meas = step(*args, **kw)
+        host(*meas)
+        return st, meas
+
+    td.tracker_init, td.tracker_step = tracker_init, tracker_step
+
+    def restore():
+        td.tracker_init, td.tracker_step = init, step
+    return restore
+
+
+def capstone_run(variant: str, seed: int, flags=()) -> int:
+    """`--capstone-run VARIANT SEED [--record-tracker]`: one capstone run
+    in this process (the `capstone` phase and `--capstone-seeds` start one
+    process per run). The launch counts are set to 0 just before the runner
+    and read just after; the kernel entry points record their shapes.
+    `float32_cpu_route` scores "chol" through `lie.logdet_psd` (a Cholesky:
+    NaN where Ω + p·Δ is not positive definite, then the backfill), the JAX
+    package's CPU route, for this run only. `--record-tracker`: the
+    tracker's measurement of every frame (ids, rays, vel, prob, active) is
+    written to
+    `chiprun_out/capstone_tracker_{VARIANT}_seed{SEED}.npz`, which
+    `tests/tracker_stream_reference.py --card` reads.
+    `tests/capstone_card_diagnostics.py` calls this function with its own
+    substitutions in place. Prints one line `{"capstone_run": {...}}`."""
+    from anticipated_vins_mono_torch.models import tracker_device as td
     from anticipated_vins_mono_torch.ops import hopper_kernels as hk
     from anticipated_vins_mono_torch.ops import lie
     from anticipated_vins_mono_torch.utils import device_vio_bench as dvb
@@ -1568,6 +1632,10 @@ def capstone_run(variant: str, seed: int) -> int:
         CAPSTONE_VARIANTS[variant]
     hk.build_kernels()
     restore_wrappers = record_called_shapes(hk)
+    frames, restore_tracker = [], None
+    record = "--record-tracker" in flags
+    if record:
+        restore_tracker = record_tracker_stream(td, frames)
     kernel_routes = hk.logdet_psd_affine_batched, hk.logdet_psd
     if cpu_route:
         hk.logdet_psd_affine_batched = lambda Om, Deltas, scale, stamps=None: \
@@ -1585,6 +1653,16 @@ def capstone_run(variant: str, seed: int) -> int:
     finally:
         hk.logdet_psd_affine_batched, hk.logdet_psd = kernel_routes
         restore_wrappers()
+        if restore_tracker:
+            restore_tracker()
+    if record:
+        os.makedirs("chiprun_out", exist_ok=True)
+        ids, rays, vel, prob, active = (np.stack(x) for x in zip(*frames))
+        np.savez_compressed(os.path.join(
+            "chiprun_out", f"capstone_tracker_{variant}_seed{seed}.npz"),
+            ids=ids, rays=rays, vel=vel, prob=prob, active=active,
+            handoff_frame=rows.get("handoff_frame", -1),
+            ate_rmse_m=rows.get("ate_rmse_m", np.nan))
     emit({"capstone_run": {
         "variant": variant, "tracker_seed": seed, "rows": rows,
         "launches": counts,
@@ -1592,12 +1670,12 @@ def capstone_run(variant: str, seed: int) -> int:
     return 0
 
 
-def capstone_runs(jobs) -> list:
+def capstone_runs(jobs, flags=()) -> list:
     """Each (variant, tracker seed) of `jobs` in a process of its own
-    (`--capstone-run`), CAPSTONE_PARALLEL at once on the card. Returns the
-    runs' records in job order; a run that fails, or whose launches are not
-    `capstone_launches`, fails the caller. Every process is ended before
-    this returns."""
+    (`--capstone-run`, `flags` passed on), CAPSTONE_PARALLEL at once on the
+    card. Returns the runs' records in job order; a run that fails, or
+    whose launches are not `capstone_launches`, fails the caller. Every
+    process is ended before this returns."""
     import subprocess
     import tempfile
     out = []
@@ -1609,7 +1687,7 @@ def capstone_runs(jobs) -> list:
                 log = tempfile.TemporaryFile(mode="w+")
                 procs.append((subprocess.Popen(
                     [sys.executable, os.path.abspath(__file__),
-                     "--capstone-run", variant, str(seed)],
+                     "--capstone-run", variant, str(seed), *flags],
                     stdout=log, stderr=subprocess.STDOUT, text=True), log))
             for (variant, seed), (proc, log) in zip(wave, procs):
                 proc.wait(timeout=CAPSTONE_RUN_TIMEOUT_S)
@@ -2024,19 +2102,24 @@ CAPSTONE_DEFAULT_VARIANTS = ("float32_schur_kernel", "float32_f64_schur",
 
 
 def capstone_seed_sweep(args) -> int:
-    """`--capstone-seeds [VARIANT ...] SEED ...`: the capstone runner alone,
-    as the `capstone` phase runs it and in the other CAPSTONE_VARIANTS (the
-    default three unless variants are named), once per tracker seed (the
-    seed picks the tracker's RANSAC draws and nothing else), the runs
+    """`--capstone-seeds [VARIANT ...] SEED ... [--record-tracker]`: the
+    capstone runner alone, as the `capstone` phase runs it and in the other
+    CAPSTONE_VARIANTS (the default three unless variants are named), once
+    per tracker seed (the seed of the tracker's RANSAC key, the same draws
+    as the JAX package's tracker of that seed, and nothing else), the runs
     CAPSTONE_PARALLEL at once (`capstone_runs`, which also holds each run's
-    launches); one line per run with its ATE. Reads how far the ATE spreads,
-    beside the JAX package's spread on the CPU on either scoring route."""
+    launches); one line per run with its ATE, beside the JAX package's
+    readings on the CPU on either scoring route. The flags go to each run
+    (`capstone_run`)."""
     from anticipated_vins_mono_torch.ops import hopper_kernels as hk
+    flags = [a for a in args if a == "--record-tracker"]
+    args = [a for a in args if a != "--record-tracker"]
     seeds = [int(a) for a in args if a.isdigit()]
     names = [a for a in args if not a.isdigit()] or CAPSTONE_DEFAULT_VARIANTS
     hk.build_kernels()
     t0 = time.perf_counter()
-    recs = capstone_runs([(name, seed) for name in names for seed in seeds])
+    recs = capstone_runs([(name, seed) for name in names for seed in seeds],
+                         flags)
     ates = {name: [] for name in names}
     for rec in recs:
         rows = rec["rows"]
@@ -2049,7 +2132,8 @@ def capstone_seed_sweep(args) -> int:
                   "device_ms_per_frame", "host_ms_per_frame",
                   "tracker_ms_per_frame", "vio_step_ms_per_frame")
                   if k in rows}})
-    emit({"phase": "capstone_seeds", "seeds": list(seeds), "ate_rmse_m": ates,
+    emit({"phase": "capstone_seeds", "seeds": list(seeds), "flags": flags,
+          "ate_rmse_m": ates,
           "seconds": time.perf_counter() - t0,
           "jax_tpu_route_ate_rmse_m_by_tracker_seed":
               CAPSTONE_JAX_TPU_ROUTE_ATE_M,
@@ -2101,8 +2185,7 @@ def capstone_step_parity(seed: int) -> int:
     try:
         for g in range(f, len(ts)):
             tst, (ids, rays, vel, prob, active) = td.tracker_step(
-                cam, tparams, tst, imgs[g], float(ts[g]),
-                generator=tracker.generator)
+                cam, tparams, tst, imgs[g], float(ts[g]))
             frame = [ids, rays.to(f64), vel.to(f64), prob.to(f64), active] \
                 + [torch.tensor(x[g], dtype=f64) for x in imu]
             on_cpu = convert.device_vio_state_from_numpy(
@@ -2201,8 +2284,8 @@ def main() -> int:
         return image_seed_sweep([int(a) for a in sys.argv[2:]])
     if len(sys.argv) > 2 and sys.argv[1] == "--capstone-seeds":
         return capstone_seed_sweep(sys.argv[2:])
-    if len(sys.argv) == 4 and sys.argv[1] == "--capstone-run":
-        return capstone_run(sys.argv[2], int(sys.argv[3]))
+    if len(sys.argv) >= 4 and sys.argv[1] == "--capstone-run":
+        return capstone_run(sys.argv[2], int(sys.argv[3]), sys.argv[4:])
     if sys.argv[1:2] == ["--capstone-step-parity"] and \
             sys.argv[3:] == ["float32"]:
         return capstone_steps_dump(int(sys.argv[2]))

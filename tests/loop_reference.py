@@ -133,9 +133,15 @@ def pallas_schur_on_cpu() -> None:
 
 
 def run_capstone(duration: float, seed: int, dtype: str, kappa: int,
-                 host_control: bool, corrupt_at: float, laps) -> dict:
+                 host_control: bool, corrupt_at: float, laps,
+                 pin_extrinsic: bool = False) -> dict:
     from anticipated_vins_mono_tpu.models import tracker_device as jtd
+    from anticipated_vins_mono_tpu.ops import window
     from anticipated_vins_mono_tpu.utils import device_vio_bench as dvb
+    if pin_extrinsic:
+        cfg = window.WindowConfig
+        window.WindowConfig = lambda **kw: cfg(**{
+            **kw, "estimate_extrinsic": False})
     global _TRACKER
     _TRACKER = _TRACKER or jtd.DeviceFeatureTracker
     jtd.DeviceFeatureTracker = functools.partial(_TRACKER, seed=seed)
@@ -160,6 +166,10 @@ def main() -> None:
     ap.add_argument("--host-control", action="store_true")
     ap.add_argument("--corrupt-at", type=float, default=0.0)
     ap.add_argument("--laps", type=float, default=None)
+    ap.add_argument("--pin-extrinsic", action="store_true",
+                    help="capstone: the camera-IMU extrinsic held at its "
+                         "known value (WindowConfig(estimate_extrinsic="
+                         "False), as the loop benchmark runs)")
     ap.add_argument("--pallas-schur", action="store_true",
                     help="capstone: the window solve through the JAX "
                          "package's Pallas Schur kernel (interpret mode)")
@@ -171,8 +181,10 @@ def main() -> None:
             row = run_loop(args.duration, s, args.dtype)
         else:
             row = run_capstone(args.duration, s, args.dtype, args.kappa,
-                               args.host_control, args.corrupt_at, args.laps)
+                               args.host_control, args.corrupt_at, args.laps,
+                               args.pin_extrinsic)
             row["pallas_schur"] = args.pallas_schur
+            row["pin_extrinsic"] = args.pin_extrinsic
         print("REF " + json.dumps(row), flush=True)
 
 

@@ -152,6 +152,36 @@ def test_projection_tangent_jacobian_matches_jacfwd():
                                    atol=1e-9)
 
 
+def test_tangent_jacobian_off_the_unit_sphere_matches_jacfwd():
+    """Quaternions whose norms are off 1 (as float32 states' are, by
+    rounding): JAX's jacfwd differentiates at the boxplus of δ=0, i.e. at
+    the renormalised quaternion, through the normalisation; the residual
+    stays the one at the pose given. Off by 1e-3 here so that a Jacobian
+    taken at the raw quaternion misses by ~1e-3 relative."""
+    p_i, q_i, p_j, q_j, tic, qic, rho, pt_i, pt_j = _proj_inputs(5)
+    q_i, q_j, qic = q_i * 1.001, q_j * 0.999, qic * 1.0005
+    args = (p_i, q_i, p_j, q_j, tic, qic, rho, pt_i, pt_j)
+
+    def one(pi, qi, pj_, qj, t, qc, r, a, b):
+        return jf.tangent_jacobian(
+            lambda x, y, z, rr: jf.projection_residual(
+                x.p, x.q, y.p, y.q, z.p, z.q, rr, a, b),
+            (jf.PoseTangent(pi, qi), jf.PoseTangent(pj_, qj),
+             jf.PoseTangent(t, qc)), (r,))
+    ref_res, ref_J = jax.vmap(one)(*_j(args))
+    tp_i, tq_i, tp_j, tq_j, ttic, tqic, trho, tpt_i, tpt_j = _t(args)
+    res, J = tf_.tangent_jacobian(
+        lambda pa, pj, pe, r, a, b: tf_.projection_residual(
+            pa.p, pa.q, pj.p, pj.q, pe.p, pe.q, r, a, b),
+        (tf_.PoseTangent(tp_i, tq_i), tf_.PoseTangent(tp_j, tq_j),
+         tf_.PoseTangent(ttic, tqic)), (trho,), (tpt_i, tpt_j))
+    np.testing.assert_allclose(res.numpy(), np.asarray(ref_res), rtol=RTOL,
+                               atol=ATOL)
+    for a, b in zip(J, ref_J):
+        np.testing.assert_allclose(a.numpy(), np.asarray(b), rtol=RTOL,
+                                   atol=1e-9)
+
+
 def test_imu_tangent_jacobian_matches_jacfwd():
     """One factor without batch dimensions, the 15-row IMU residual."""
     st, jp, tp = _imu_inputs(6)

@@ -114,3 +114,39 @@ def test_failed_cholesky_gives_nan_as_jax(site):
             "pgo_solve": _pgo}[site]()
     np.testing.assert_array_equal(np.isnan(t), np.isnan(j))
     np.testing.assert_allclose(t, j, rtol=RTOL, atol=1e-12)
+
+
+def test_failed_eigh_gives_nan_not_an_exception(monkeypatch):
+    """`lie.eigh_or_nan`, the eigensolver of the batched small-matrix sites
+    (triangulation's 4×4 AᵀA, the RANSAC's 9×9, "lowrank"'s position
+    blocks). cuSOLVER's batched Jacobi solver can fail to converge on an
+    ill-conditioned small matrix (seen on the card in triangulation), and
+    `torch.linalg.eigh` then raises for the whole batch, where
+    `jnp.linalg.eigh` returns NaN for a matrix LAPACK fails on. Injected
+    here on the CPU: the solver raises for any batch holding a marked
+    matrix. Each matrix is taken again alone: the others equal the plain
+    solve exactly, the marked one is NaN."""
+    from anticipated_vins_mono_torch.ops import lie
+    rng = np.random.default_rng(1)
+    X = rng.normal(size=(5, 4, 4))
+    A = torch.from_numpy(X @ np.swapaxes(X, -1, -2))
+    A[2, 0, 0] = 123.0
+    plain = torch.linalg.eigh
+
+    def flaky(M, *args, **kw):
+        if (M[..., 0, 0] == 123.0).any():
+            raise torch.linalg.LinAlgError("failed to converge")
+        return plain(M, *args, **kw)
+
+    monkeypatch.setattr(torch.linalg, "eigh", flaky)
+    w, V = lie.eigh_or_nan(A.reshape(5, 1, 4, 4))
+    assert w.shape == (5, 1, 4) and V.shape == (5, 1, 4, 4)
+    assert torch.isnan(w[2]).all() and torch.isnan(V[2]).all()
+    for i in (0, 1, 3, 4):
+        ref = plain(A[i])
+        assert torch.equal(w[i, 0], ref.eigenvalues)
+        assert torch.equal(V[i, 0], ref.eigenvectors)
+    monkeypatch.setattr(torch.linalg, "eigh", plain)
+    out = lie.eigh_or_nan(A)
+    ref = plain(A)
+    assert torch.equal(out.eigenvalues, ref.eigenvalues)

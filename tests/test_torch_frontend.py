@@ -222,3 +222,31 @@ def test_host_feature_tracker_free_running_stays_with_jax(rendered):
     for img, t in zip(imgs, ts):
         _same_measurements(tt.process(img, t), jt.process(img, t),
                            0.05 / fx)
+
+
+@pytest.mark.parametrize("shift", [(10, 0), (0, 10), (-12, 5)])
+def test_lk_track_equals_jax_past_its_window(shift):
+    """A whole-pixel shift past the finest level's ±8 px window (`pad`).
+    Both packages cut the current frame's patch around the previous corner,
+    not around the flow the coarser levels found, so at the finest level
+    the window cannot follow a shift of more than 8 px and LK returns a
+    wrong flow that passes its residual check: a reference defect the port
+    reproduces (ROADMAP queue C 15). Held: `ok` exact, points 1e-3 px, as
+    JAX; and the tracked points are off by more than 4 px."""
+    img = _texture()
+    img2 = np.roll(img, (shift[1], shift[0]), axis=(0, 1))
+    rng = np.random.default_rng(2)
+    pts = rng.uniform([40, 40], [120, 80], (16, 2)).astype(np.float32)
+    val = np.ones(len(pts), np.float32)
+    jp1 = tuple(jfe.build_pyramid(jnp.asarray(img), 3))
+    jp2 = tuple(jfe.build_pyramid(jnp.asarray(img2), 3))
+    ref_pts, ref_ok = jfe.lk_track(jp1, jp2, jnp.asarray(pts),
+                                   jnp.asarray(val), impl="gather")
+    out_pts, out_ok = tfe.lk_track(
+        tuple(tfe.build_pyramid(_t(img), 3)),
+        tuple(tfe.build_pyramid(_t(img2), 3)), _t(pts), _t(val))
+    np.testing.assert_array_equal(out_ok.numpy(), np.asarray(ref_ok))
+    _close(out_pts, ref_pts, 1e-3)
+    ok = out_ok.numpy()
+    err = np.abs(out_pts.numpy()[ok] - pts[ok] - np.array(shift)).max(-1)
+    assert ok.sum() >= 8 and (err > 4.0).all(), err

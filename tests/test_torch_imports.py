@@ -193,8 +193,9 @@ def test_image_path_entry_points_raise_without_card():
     with pytest.raises((RuntimeError, AssertionError)):
         render.make_box_world(np.zeros((2, 3)))
     cam = cameras.euroc_camera(device="cpu")
-    tracker = td.DeviceFeatureTracker(cam)
-    assert tracker.generator.device.type == "cpu"
+    state = td.tracker_init(cam, td.TrackerDeviceParams(max_features=8),
+                            np.zeros((48, 64), np.float32), 0.0)
+    assert state.key.device.type == "cpu"
 
 
 def test_loop_closure_entry_points_raise_without_card():
