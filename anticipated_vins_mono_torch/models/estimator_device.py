@@ -45,6 +45,7 @@ from anticipated_vins_mono_torch.ops.preintegration import (
 from anticipated_vins_mono_torch.ops.triangulation import triangulate
 from anticipated_vins_mono_torch.ops.window import (
     PriorFactor, WindowConfig, WindowMeasurements, WindowState, lm_solve)
+from anticipated_vins_mono_torch.utils.timing import span, spanned
 from anticipated_vins_mono_torch.utils.tree import tree_map, tree_to
 
 Tensor = torch.Tensor
@@ -265,6 +266,7 @@ def _match_ids(st: DeviceVioState, in_ids, in_active):
     return occupied, eq
 
 
+@spanned("vio.db")
 def _db_add_frame(st: DeviceVioState, k: int, in_ids, in_pts, in_vel,
                   in_prob, in_active, min_parallax, slot_evict: bool = True):
     """Observation insertion + keyframe decision as masked array ops: id
@@ -399,6 +401,7 @@ def _measurements(st: DeviceVioState, pr: DeviceVioParams, feat_valid):
         td_obs=st.td_at_frame if cfg.estimate_td else None)
 
 
+@spanned("vio.demote")
 def _demote_outliers(st: DeviceVioState, pr: DeviceVioParams):
     """Demote (solved=0, depth reset) landmarks whose depth collapsed or
     whose mean reprojection error exceeds demote_px — never delete (the
@@ -517,6 +520,7 @@ def _slide_second_newest_db(st: DeviceVioState, cfg: WindowConfig):
     return st._replace(ids=ids, pts=pts, vel=vel, mask=mask, solved=solved)
 
 
+@spanned("vio.select")
 def _select_stage(pr: DeviceVioParams, st: DeviceVioState, k: int,
                   in_ids, in_pts, in_vel, in_prob, in_active,
                   imu_dts, imu_acc, imu_gyr):
@@ -610,6 +614,7 @@ def _set_row(x: Tensor, k: int, value) -> Tensor:
     return x
 
 
+@spanned("vio.enter")
 def _enter_frame(pr: DeviceVioParams, st: DeviceVioState, k: int,
                  imu_dts, imu_acc, imu_gyr, acc0, gyr0) -> DeviceVioState:
     """IMU propagation into frame slot k: the raw batch is stored as pair
@@ -640,6 +645,7 @@ def _enter_frame(pr: DeviceVioParams, st: DeviceVioState, k: int,
 # ---------------------------------------------------------------------------
 
 
+@spanned("vio.margin")
 def _margin_old(pr: DeviceVioParams, st: DeviceVioState) -> DeviceVioState:
     """Keyframe: marginalize the oldest frame, slide DB and state left."""
     cfg = pr.wcfg
@@ -652,6 +658,7 @@ def _margin_old(pr: DeviceVioParams, st: DeviceVioState) -> DeviceVioState:
     return st._replace(prior=prior, **shifted)
 
 
+@spanned("vio.margin")
 def _margin_second(pr: DeviceVioParams, st: DeviceVioState) -> DeviceVioState:
     """Non-keyframe: drop the second-newest frame from the prior, merge its
     IMU interval into the newest pair."""
@@ -702,6 +709,7 @@ def vio_step(pr: DeviceVioParams, st: DeviceVioState,
                          imu_dts, imu_acc, imu_gyr, acc0, gyr0)
 
 
+@spanned("vio.step")
 def _vio_step(pr, st, in_ids, in_pts, in_vel, in_prob, in_active,
               imu_dts, imu_acc, imu_gyr, acc0, gyr0):
     cfg = pr.wcfg
@@ -725,22 +733,25 @@ def _vio_step(pr, st, in_ids, in_pts, in_vel, in_prob, in_active,
         slot_evict=pr.slot_evict)
 
     # -- triangulate fresh landmarks
-    fv = _feat_valid(st)
-    inv_d, good = triangulate(_window_state(st, cfg), st.pts, st.mask,
-                              _anchor(st), cfg)
-    fresh = (st.solved < 0.5) & (fv > 0)
-    st = st._replace(
-        inv_depth=torch.where(fresh, inv_d, st.inv_depth),
-        solved=torch.where(fresh, good, st.solved))
+    with span("vio.triangulate"):
+        fv = _feat_valid(st)
+        inv_d, good = triangulate(_window_state(st, cfg), st.pts, st.mask,
+                                  _anchor(st), cfg)
+        fresh = (st.solved < 0.5) & (fv > 0)
+        st = st._replace(
+            inv_depth=torch.where(fresh, inv_d, st.inv_depth),
+            solved=torch.where(fresh, good, st.solved))
 
     # -- window solve (only solved landmarks participate), a batch of one
-    wstate = _window_state(st, cfg)
-    meas = _measurements(st, pr, fv * st.solved)
-    new_state, sdiag = lm_solve(tree_map(lambda x: x[None], wstate),
-                                tree_map(lambda x: x[None], meas), cfg,
-                                device=dev)
-    new_state = tree_map(lambda x: x[0], new_state)
-    sdiag = {name: x[0] for name, x in sdiag.items()}
+    with span("vio.measurements"):
+        wstate = _window_state(st, cfg)
+        meas = _measurements(st, pr, fv * st.solved)
+    with span("vio.solve"):
+        new_state, sdiag = lm_solve(tree_map(lambda x: x[None], wstate),
+                                    tree_map(lambda x: x[None], meas), cfg,
+                                    device=dev)
+        new_state = tree_map(lambda x: x[0], new_state)
+        sdiag = {name: x[0] for name, x in sdiag.items()}
 
     # -- failure statistics
     speed = torch.linalg.norm(new_state.v[k])

@@ -19,6 +19,7 @@ from typing import NamedTuple, Optional
 import torch
 
 from anticipated_vins_mono_torch.ops import lie
+from anticipated_vins_mono_torch.utils.timing import spanned
 
 Tensor = torch.Tensor
 
@@ -136,6 +137,7 @@ def _midpoint_step(carry, inp, noise_cov, with_cov, dt_ref):
             acc1, gyr1, ba, bg, dt_sum + dt_s)
 
 
+@spanned("preint")
 def preintegrate(dts: Tensor, accs: Tensor, gyrs: Tensor,
                  acc0: Tensor, gyr0: Tensor,
                  ba: Tensor, bg: Tensor,

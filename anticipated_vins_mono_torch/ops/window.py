@@ -36,6 +36,7 @@ import torch
 
 from anticipated_vins_mono_torch.ops import factors, lie
 from anticipated_vins_mono_torch.ops.preintegration import Preintegrated
+from anticipated_vins_mono_torch.utils.timing import span, spanned
 from anticipated_vins_mono_torch.utils.tree import tree_map, tree_to
 
 Tensor = torch.Tensor
@@ -809,6 +810,7 @@ def lm_solve(state: WindowState, meas: WindowMeasurements, cfg: WindowConfig,
         return _lm_solve(state, meas, cfg)
 
 
+@spanned("lm.solve")
 def _lm_solve(state, meas, cfg):
     anchor_ref = (state.p[..., 0, :], state.q[..., 0, :])
     batch = state.p.shape[:-2]
@@ -816,53 +818,58 @@ def _lm_solve(state, meas, cfg):
     D, F = cfg.dim, cfg.max_feats
 
     def body(st, lam, cost):
-        if meas.relo_pts is None:
-            H, g, H_lp, h_ll, g_l = normal_equations_fast(
-                st, meas, cfg, anchor_ref)
-        else:
-            r_all, J_all, p_res, p_rows, p_rho, _ = linearize(
-                st, meas, cfg, anchor_ref)
-            H, g, H_lp, h_ll, g_l = build_normal_equations(
-                r_all, J_all, p_res, p_rows, p_rho, cfg)
-        if cfg.fused_schur:
-            from anticipated_vins_mono_torch.ops.hopper_kernels import \
-                schur_solve_fused
-            dx, d_rho, pred = schur_solve_fused(
-                H.reshape(-1, D, D), g.reshape(-1, D),
-                H_lp.reshape(-1, F, D), h_ll.reshape(-1, F),
-                g_l.reshape(-1, F), lam.reshape(-1))
-            dx = dx.reshape(batch + (D,)).to(dtype)
-            d_rho = d_rho.reshape(batch + (F,)).to(dtype)
-            pred = pred.reshape(batch)
-        else:
-            dx, d_rho, pred = schur_solve(H, g, H_lp, h_ll, g_l, lam, cfg)
-        # a failed factorization (possible in f32 when λ underflows the
-        # representable curvature) yields NaN; 0·NaN = NaN would pass the
-        # branchless blend below, so sanitize the step and reject it
-        finite = (torch.isfinite(dx).all(dim=-1)
-                  & torch.isfinite(d_rho).all(dim=-1) & torch.isfinite(pred))
-        dx = torch.where(torch.isfinite(dx), dx, torch.zeros_like(dx))
-        d_rho = torch.where(torch.isfinite(d_rho), d_rho,
-                            torch.zeros_like(d_rho))
-        cand = retract(st, dx, d_rho, cfg)
-        new_cost = robust_cost(cand, meas, cfg, anchor_ref)
-        drop = cost - new_cost
-        ok = (new_cost < cost) & (pred > 0) & finite
-        rho = (drop / torch.clamp(pred, min=1e-30)).to(lam.dtype)
-        okf = ok.to(dtype)
-        st_next = tree_map(
-            lambda a, b: _expand_like(okf, a) * b
-            + (1.0 - _expand_like(okf, a)) * a, st, cand)
-        st_next = st_next._replace(q=lie.quat_normalize(st_next.q),
-                                   qic=lie.quat_normalize(st_next.qic))
-        if cfg.lm_strategy == "nielsen":
-            shrink = torch.clamp(1.0 - (2.0 * rho - 1.0) ** 3, min=1.0 / 3.0)
-            lam_next = torch.where(ok, lam * shrink, lam * 2.0)
-        else:
-            lam_next = torch.where(ok, lam * cfg.lm_lambda_down,
-                                   lam * cfg.lm_lambda_up)
-        lam_next = torch.clamp(lam_next, 1e-12, 1e8)
-        cost_next = torch.where(ok, new_cost, cost)
+        with span("lm.normal_equations"):
+            if meas.relo_pts is None:
+                H, g, H_lp, h_ll, g_l = normal_equations_fast(
+                    st, meas, cfg, anchor_ref)
+            else:
+                r_all, J_all, p_res, p_rows, p_rho, _ = linearize(
+                    st, meas, cfg, anchor_ref)
+                H, g, H_lp, h_ll, g_l = build_normal_equations(
+                    r_all, J_all, p_res, p_rows, p_rho, cfg)
+        with span("lm.schur"):
+            if cfg.fused_schur:
+                from anticipated_vins_mono_torch.ops.hopper_kernels import \
+                    schur_solve_fused
+                dx, d_rho, pred = schur_solve_fused(
+                    H.reshape(-1, D, D), g.reshape(-1, D),
+                    H_lp.reshape(-1, F, D), h_ll.reshape(-1, F),
+                    g_l.reshape(-1, F), lam.reshape(-1))
+                dx = dx.reshape(batch + (D,)).to(dtype)
+                d_rho = d_rho.reshape(batch + (F,)).to(dtype)
+                pred = pred.reshape(batch)
+            else:
+                dx, d_rho, pred = schur_solve(H, g, H_lp, h_ll, g_l, lam, cfg)
+        with span("lm.cost"):
+            # a failed factorization (possible in f32 when λ underflows the
+            # representable curvature) yields NaN; 0·NaN = NaN would pass the
+            # branchless blend below, so sanitize the step and reject it
+            finite = (torch.isfinite(dx).all(dim=-1)
+                      & torch.isfinite(d_rho).all(dim=-1)
+                      & torch.isfinite(pred))
+            dx = torch.where(torch.isfinite(dx), dx, torch.zeros_like(dx))
+            d_rho = torch.where(torch.isfinite(d_rho), d_rho,
+                                torch.zeros_like(d_rho))
+            cand = retract(st, dx, d_rho, cfg)
+            new_cost = robust_cost(cand, meas, cfg, anchor_ref)
+            drop = cost - new_cost
+            ok = (new_cost < cost) & (pred > 0) & finite
+            rho = (drop / torch.clamp(pred, min=1e-30)).to(lam.dtype)
+            okf = ok.to(dtype)
+            st_next = tree_map(
+                lambda a, b: _expand_like(okf, a) * b
+                + (1.0 - _expand_like(okf, a)) * a, st, cand)
+            st_next = st_next._replace(q=lie.quat_normalize(st_next.q),
+                                       qic=lie.quat_normalize(st_next.qic))
+            if cfg.lm_strategy == "nielsen":
+                shrink = torch.clamp(1.0 - (2.0 * rho - 1.0) ** 3,
+                                     min=1.0 / 3.0)
+                lam_next = torch.where(ok, lam * shrink, lam * 2.0)
+            else:
+                lam_next = torch.where(ok, lam * cfg.lm_lambda_down,
+                                       lam * cfg.lm_lambda_up)
+            lam_next = torch.clamp(lam_next, 1e-12, 1e8)
+            cost_next = torch.where(ok, new_cost, cost)
         return st_next, lam_next, cost_next
 
     lam = torch.full(batch, cfg.lm_lambda_init, dtype=dtype, device=dev)

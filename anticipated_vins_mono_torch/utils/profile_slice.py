@@ -2,11 +2,14 @@
 
     python3 -m anticipated_vins_mono_torch.utils.profile_slice [--reps 3]
 
-Times each stage of the selector (horizon, Ω, Δ_ℓ, greedy), of one LM
-iteration (projection rows, IMU rows, normal equations, cost pass, Schur
-solve, retraction) and of one whole frame of the estimator (`vio_step`:
-propagate, gate, DB insert, triangulate, measurements, solve, demote, both
-marginalizations, both slides) and of one frame of the host estimator chain
+Times each stage of the selector (horizon, Ω, Δ_ℓ, greedy); splits whole
+LM solves into their phases (normal equations, Schur solve, cost and
+accept) and whole frames of the estimator (`vio_step`: propagate, gate, DB
+insert, triangulate, measurements, solve, demote, marginalization) into
+their stages, from the program's own spans (`utils/timing.span`) recorded
+under `torch.profiler`: per stage its host time, the card's busy time
+inside it and the host synchronisations counted in it; and times one frame
+of the host estimator chain
 (`VioEstimator.process_frame` with the `AttentionSelector`: selector,
 preintegration, triangulation, solve, marginalization and the numpy
 bookkeeping around them) and of one frame of the image path (render, CLAHE
@@ -18,13 +21,15 @@ at the reference deployment's full size
 (`utils/deployment.py`), float32, with a host clock around work that ends in
 `torch.cuda.synchronize()`, and reads the device's busy share over one
 solve, one selection, one frame and one tracker step from
-`torch.profiler`.
+`torch.profiler` (the union of the card's kernel, copy and set intervals
+over the call).
 Prints one JSON object. Needs a CUDA device.
 """
 
 from __future__ import annotations
 
 import argparse
+import bisect
 import json
 import subprocess
 import time
@@ -39,13 +44,11 @@ from anticipated_vins_mono_torch.models import estimator_device as ed
 from anticipated_vins_mono_torch.models.feature_selector import device_select
 from anticipated_vins_mono_torch.ops import hopper_kernels as hk
 from anticipated_vins_mono_torch.ops import lie
-from anticipated_vins_mono_torch.ops import marginalization as mg
 from anticipated_vins_mono_torch.ops import window as win
-from anticipated_vins_mono_torch.ops.triangulation import triangulate
 from anticipated_vins_mono_torch.utils import deployment as dep
+from anticipated_vins_mono_torch.utils import timing
 from anticipated_vins_mono_torch.utils.synthetic import (
     analytic_trajectory, batched, make_window_problem, selector_inputs)
-from anticipated_vins_mono_torch.utils.tree import tree_map
 
 
 def host_ms(fn, reps: int) -> float:
@@ -59,26 +62,140 @@ def host_ms(fn, reps: int) -> float:
     return (time.perf_counter() - t0) / reps * 1e3
 
 
-def device_busy(fn) -> dict:
-    """Wall time of `fn()` and the sum of its kernels' device time."""
-    from torch.profiler import ProfilerActivity, profile
-    fn()
-    torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        t0 = time.perf_counter()
-        fn()
+# host calls that wait for the card (a synchronous device-to-host copy is a
+# `cudaMemcpyAsync` followed by `cudaStreamSynchronize`)
+SYNC_CALLS = ("cudaStreamSynchronize", "cudaDeviceSynchronize",
+              "cudaEventSynchronize", "cudaMemcpy", "cuStreamSynchronize",
+              "cuCtxSynchronize", "cuEventSynchronize", "cuMemcpyDtoH")
+LAUNCH_CALLS = ("cudaLaunchKernel", "cudaLaunchKernelExC", "cuLaunchKernel",
+                "cuLaunchKernelEx", "cudaLaunchCooperativeKernel",
+                "cudaGraphLaunch", "cuGraphLaunch")
+
+
+def _sync():
+    if torch.cuda.is_available():
         torch.cuda.synchronize()
-        wall = (time.perf_counter() - t0) * 1e3
-    busy_us, n_kernels = 0.0, 0
-    for ev in prof.key_averages():
-        dev = getattr(ev, "self_device_time_total",
-                      getattr(ev, "self_cuda_time_total", 0.0))
-        if dev > 0:
-            busy_us += dev
-            n_kernels += ev.count
-    return {"wall_ms_under_profiler": wall, "device_busy_ms": busy_us / 1e3,
-            "device_events": n_kernels,
-            "device_idle_share": 1.0 - busy_us / 1e3 / wall if wall else None}
+
+
+def _profiler():
+    """A profiler of the card's activity and the host's CUDA calls (the
+    host's operators only where there is no card): recording each host
+    operator as well slows the host-bound step by about two thirds (on an
+    H100, a frame of the benchmark's `moving` cell: 1,987 ms, against
+    1,273 ms with this profiler and 1,201 ms with none), and the spans
+    would time the profiler."""
+    from torch.profiler import ProfilerActivity, profile
+    card = torch.cuda.is_available()
+    return profile(activities=[ProfilerActivity.CUDA if card
+                               else ProfilerActivity.CPU])
+
+
+def _on_device(e) -> bool:
+    """Whether a profiler event is work the card ran: a kernel, a copy or a
+    set (not a range the host annotated)."""
+    if hasattr(e, "activity_type"):
+        return e.activity_type() in ("kernel", "gpu_memcpy", "gpu_memset")
+    annotated = e.is_user_annotation() if hasattr(
+        e, "is_user_annotation") else False
+    return str(e.device_type()).endswith("CUDA") and not annotated
+
+
+class _Busy:
+    """The union of the card's work intervals in a profile, as disjoint
+    sorted intervals; `within(lo, hi)` is the time it covers in [lo, hi]
+    (ns on the profiler's clock)."""
+
+    def __init__(self, events):
+        merged = []
+        for a, b in sorted((e.start_ns(), e.start_ns() + e.duration_ns())
+                           for e in events if _on_device(e)):
+            if merged and a <= merged[-1][1]:
+                merged[-1][1] = max(merged[-1][1], b)
+            else:
+                merged.append([a, b])
+        self.lo = [a for a, _ in merged]
+        self.iv = merged
+
+    def within(self, lo: int, hi: int) -> int:
+        i = max(bisect.bisect_right(self.lo, lo) - 1, 0)
+        got = 0
+        for a, b in self.iv[i:]:
+            if a >= hi:
+                break
+            got += max(0, min(b, hi) - max(a, lo))
+        return got
+
+
+def device_busy(fn) -> dict:
+    """Host time of `fn()` to its synchronised end under the profiler and the
+    card's busy time over it: the union of its kernel, copy and set
+    intervals inside the call."""
+    fn()
+    _sync()
+    with _profiler() as prof:
+        t0 = time.time_ns()
+        fn()
+        _sync()
+        t1 = time.time_ns()
+    events = list(prof.profiler.kineto_results.events())
+    busy = _Busy(events).within(t0, t1)
+    wall = t1 - t0
+    return {"wall_ms_under_profiler": wall * 1e-6,
+            "device_busy_ms": busy * 1e-6,
+            "device_events": sum(1 for e in events if _on_device(e)),
+            "device_idle_share": 1.0 - busy / wall if wall else None}
+
+
+def span_split(fn, reps: int, top: str) -> dict:
+    """Where `reps` calls of `fn()` go, from the spans the program records
+    in them under the profiler (`utils/timing.span`; `top` is the name of
+    the call's outermost span). Per span name, per call, each span with
+    what nests in it: `host_ms`; `device_busy_ms`, the card's busy time
+    inside the spans; `syncs`, the host synchronisations the program's
+    counter saw; `profiler_syncs`, the host calls that wait for the card
+    as the profiler saw them (`SYNC_CALLS`); `launches`, the host's kernel
+    and graph launch calls; `spans`, how many ran. Beside: the share of
+    the outermost spans that no child span covers (`uncovered_share`)."""
+    fn()
+    _sync()
+    timing.reset_recorded()
+    with _profiler() as prof:
+        for _ in range(reps):
+            fn()
+            _sync()
+    spans = timing.recorded()
+    timing.reset_recorded()
+    events = list(prof.profiler.kineto_results.events())
+    busy = _Busy(events)
+    stamps = lambda names: sorted(  # noqa: E731
+        e.start_ns() for e in events if e.name() in names)
+    waits, launches = stamps(SYNC_CALLS), stamps(LAUNCH_CALLS)
+    inside = lambda xs, sp: (  # noqa: E731
+        bisect.bisect_left(xs, sp.end_ns)
+        - bisect.bisect_left(xs, sp.start_ns))
+    # the counter's syncs of each span with those of the spans in it
+    syncs = {sp.id: sp.syncs for sp in spans}
+    for sp in reversed(spans):
+        if sp.parent is not None:
+            syncs[sp.parent] += syncs[sp.id]
+    outer = [sp for sp in spans if sp.parent is None and sp.name == top]
+    n = len(outer)
+    total = defaultdict(lambda: [0, 0, 0, 0, 0, 0])
+    for sp in spans:
+        row = total[sp.name]
+        for i, x in enumerate((
+                sp.end_ns - sp.start_ns, busy.within(sp.start_ns, sp.end_ns),
+                syncs[sp.id], inside(waits, sp), inside(launches, sp), 1)):
+            row[i] += x
+    split = {name: {"host_ms": t * 1e-6 / n, "device_busy_ms": b * 1e-6 / n,
+                    "syncs": k / n, "profiler_syncs": w / n,
+                    "launches": la / n, "spans": c / n}
+             for name, (t, b, k, w, la, c) in total.items()}
+    ids = {sp.id for sp in outer}
+    child = sum(sp.end_ns - sp.start_ns for sp in spans if sp.parent in ids)
+    whole = sum(sp.end_ns - sp.start_ns for sp in outer)
+    return {"calls": n, "split": split,
+            "uncovered_share": 1.0 - child / whole if whole else None}
 
 
 def profile_selector(prob, cfg, reps: int) -> dict:
@@ -117,97 +234,31 @@ def profile_selector(prob, cfg, reps: int) -> dict:
 
 
 def profile_solver(prob, cfg, B: int, reps: int) -> dict:
+    """Whole batched solves of B copies of the problem: host ms on both
+    routes of the linear solve, and the fused route's split into its phases
+    from the spans, and the card's busy share over one solve."""
     st, ms = batched(prob.init, B), batched(prob.meas, B)
-    ref = (st.p[..., 0, :], st.q[..., 0, :])
     off = cfg._replace(fused_schur=False)
-    with torch.no_grad():
-        H, g, H_lp, h_ll, g_l = win.normal_equations_fast(st, ms, cfg, ref)
-        lam = torch.full((B,), 1e-4, device="cuda")
-        dx, d_rho, _ = hk.schur_solve_fused(H, g, H_lp, h_ll, g_l, lam)
-        out = {
-            "proj_rows_ms": host_ms(
-                lambda: win._proj_factor_rows(st, ms, cfg), reps),
-            "imu_rows_ms": host_ms(
-                lambda: win._imu_factor_rows(st, ms, cfg), reps),
-            "normal_equations_fast_ms": host_ms(
-                lambda: win.normal_equations_fast(st, ms, cfg, ref), reps),
-            "robust_cost_ms": host_ms(
-                lambda: win.robust_cost(st, ms, cfg, ref), reps),
-            "schur_fused_ms": host_ms(
-                lambda: hk.schur_solve_fused(H, g, H_lp, h_ll, g_l, lam), reps),
-            "schur_f64_ms": host_ms(
-                lambda: win.schur_solve(H, g, H_lp, h_ll, g_l, lam, off), reps),
-            "retract_ms": host_ms(
-                lambda: win.retract(st, dx, d_rho, cfg), reps),
-        }
     fused = lambda: win.lm_solve(st, ms, cfg)
-    out["lm_solve_fused_ms"] = host_ms(fused, reps)
-    out["lm_solve_f64_schur_ms"] = host_ms(
-        lambda: win.lm_solve(st, ms, off), reps)
-    out["lm_solve_fused_profile"] = device_busy(fused)
-    return out
+    return {"lm_solve_fused_ms": host_ms(fused, reps),
+            "lm_solve_f64_schur_ms": host_ms(
+                lambda: win.lm_solve(st, ms, off), reps),
+            "lm_solve_fused_phases": span_split(fused, reps, "lm.solve"),
+            "lm_solve_fused_profile": device_busy(fused)}
 
 
 def vio_step_stages(pr, st, pk, reps: int) -> dict:
-    """Per-stage host times of one `vio_step` from state `st` on the frame
-    inputs `pk` (ids, rays, velocities, probabilities, active, the padded
-    IMU), each stage on the inputs the step would hand it; both
-    marginalizations and both slides are timed on the same state, whichever
-    the frame would take."""
-    cfg = pr.wcfg
-    k = cfg.nf - 1
-    ids, pts, vel, prob, active, dts, acc, gyr, acc0, gyr0 = pk
-    with torch.no_grad():
-        entered = ed._enter_frame(pr, st, k, dts, acc, gyr, acc0, gyr0)
-        gated, _ = ed._select_stage(pr, entered, k, *pk[:8])
-        added, keyframe, _ = ed._db_add_frame(entered, k, ids, pts, vel, prob,
-                                              gated, pr.min_parallax)
-        fv = ed._feat_valid(added)
-        wstate = ed._window_state(added, cfg)
-        meas = ed._measurements(added, pr, fv * added.solved)
-        one = lambda tree: tree_map(lambda x: x[None], tree)
-        W = cfg.window
-        out = {
-            # which marginalization the profiled `vio_step` below takes
-            "keyframe": bool(keyframe),
-            "propagate_ms": host_ms(lambda: ed._propagate(
-                st.p[k - 1], st.q[k - 1], st.v[k - 1], st.ba[k - 1],
-                st.bg[k - 1], dts, acc, gyr, acc0, gyr0), reps),
-            "enter_frame_ms": host_ms(lambda: ed._enter_frame(
-                pr, st, k, dts, acc, gyr, acc0, gyr0), reps),
-            "select_stage_ms": host_ms(lambda: ed._select_stage(
-                pr, entered, k, *pk[:8]), reps),
-            "db_add_frame_ms": host_ms(lambda: ed._db_add_frame(
-                entered, k, ids, pts, vel, prob, gated, pr.min_parallax),
-                reps),
-            "triangulate_ms": host_ms(lambda: triangulate(
-                wstate, added.pts, added.mask, ed._anchor(added), cfg), reps),
-            "measurements_ms": host_ms(lambda: ed._measurements(
-                added, pr, fv * added.solved), reps),
-            "lm_solve_ms": host_ms(lambda: win.lm_solve(
-                one(wstate), one(meas), cfg), reps),
-            "demote_outliers_ms": host_ms(lambda: ed._demote_outliers(
-                added, pr), reps),
-            "marginalize_oldest_ms": host_ms(lambda: mg.marginalize_oldest(
-                wstate, meas._replace(feat_valid=fv), cfg), reps),
-            "marginalize_second_newest_ms": host_ms(
-                lambda: mg.marginalize_second_newest(wstate, added.prior, cfg),
-                reps),
-            "margin_old_whole_ms": host_ms(lambda: ed._margin_old(pr, added),
-                                           reps),
-            "margin_second_whole_ms": host_ms(
-                lambda: ed._margin_second(pr, added), reps),
-            "slide_oldest_db_ms": host_ms(lambda: ed._slide_oldest_db(
-                added, cfg), reps),
-            "merge_pair_buffers_ms": host_ms(lambda: ed._merge_pair_buffers(
-                added.imu_dts[W - 2], added.imu_acc[W - 2],
-                added.imu_gyr[W - 2], added.imu_dts[W - 1],
-                added.imu_acc[W - 1], added.imu_gyr[W - 1]), reps),
-        }
+    """`reps` whole `vio_step`s from state `st` on the frame inputs `pk`
+    (ids, rays, velocities, probabilities, active, the padded IMU), split
+    into their stages by the step's spans (`span_split`), its host time
+    without the profiler, and the card's busy share over one step."""
     whole = lambda: ed.vio_step(pr, st, *pk)
-    out["vio_step_ms"] = host_ms(whole, reps)
-    out["vio_step_profile"] = device_busy(whole)
-    return out
+    with torch.no_grad():
+        _, out = whole()
+    return {"keyframe": bool(out["keyframe"]),
+            "vio_step_ms": host_ms(whole, reps),
+            "stages": span_split(whole, reps, "vio.step"),
+            "vio_step_profile": device_busy(whole)}
 
 
 def profile_frame(reps: int, warm_frames: int = 15) -> dict:
