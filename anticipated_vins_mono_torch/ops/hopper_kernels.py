@@ -1,4 +1,4 @@
-"""The two hand-written Hopper kernels, their wrappers and plain versions.
+"""The hand-written Hopper kernels, their wrappers and plain versions.
 
 Counterpart of `anticipated_vins_mono_tpu/ops/pallas_kernels.py`:
 
@@ -14,13 +14,19 @@ Both kernels factor through one blocked in-shared-memory LDLᵀ
 (`csrc/blocked_ldl.cuh`); `blocked_ldl_plain` is that algorithm in plain
 PyTorch, in the kernel's order, for the tests.
 
+A third kernel replaces no TPU kernel: `preint_scan` runs the IMU
+preintegration's whole midpoint scan of a call, and its Cholesky tail, in
+one launch (`csrc/preint_scan.cu`), float32 or float64, where the JAX
+package has a `lax.scan`; its plain version is the port's loop,
+`preintegration.preintegrate_plain`.
+
 The CUDA sources are compiled with `nvcc` for `sm_90a` at first use, one
 compiler process per source started together, into `build/hopper_kernels/`
 beside the package, and loaded with `ctypes`. Nothing is compiled when the
 module is imported.
 
 Each wrapper takes its plain PyTorch version (`*_plain`, the same arithmetic
-in the same order, f32) only for tensors that lie on the CPU. For a CUDA
+in the same order) only for tensors that lie on the CPU. For a CUDA
 tensor it launches the kernel or raises; there is no fallback. Each launch
 adds one to `launch_counts[name]`.
 """
@@ -29,6 +35,7 @@ from __future__ import annotations
 
 import ctypes
 import hashlib
+import math
 import os
 import shutil
 import subprocess
@@ -51,6 +58,7 @@ MAX_SMEM_BYTES = 232448
 KERNEL_SOURCES = {
     "logdet_psd_batched": "logdet_psd.cu",
     "schur_solve_fused": "schur_solve_fused.cu",
+    "preint_scan": "preint_scan.cu",
 }
 
 # launches since the last reset, per kernel; a wrapper adds one exactly where
@@ -126,9 +134,16 @@ def build_kernels() -> dict:
 
 def _declare(name: str, lib):
     """Sets the argument types of the library's functions; returns its init
-    function (shared-memory opt-in, called once after loading)."""
-    ptr, i32 = ctypes.c_void_p, ctypes.c_int
-    if name == "logdet_psd_batched":
+    function (shared-memory opt-in or an early module load, called once
+    after loading)."""
+    ptr, i32, f64 = ctypes.c_void_p, ctypes.c_int, ctypes.c_double
+    if name == "preint_scan":
+        # (dts, accs, gyrs, acc0, gyr0, ba, bg, dp, dq, dv, J, P, dt_sum, S,
+        #  batch, n, with_cov, f64, noise_var, dt_ref, stream)
+        lib.avm_preint_scan.argtypes = [ptr] * 14 + [i32] * 4 + [ptr, f64,
+                                                                 ptr]
+        fns = (lib.avm_preint_scan, lib.avm_preint_scan_init)
+    elif name == "logdet_psd_batched":
         # (M, out, batch, n, stamps, stream)
         lib.avm_logdet_psd_batched.argtypes = [ptr, ptr, i32, i32, ptr, ptr]
         # (Om, Deltas, scale, out, batch, n, stamps, stream)
@@ -517,3 +532,65 @@ def schur_solve_fused(H: Tensor, g: Tensor, H_lp: Tensor, h_ll: Tensor,
     _raise_on(err, "schur_solve_fused")
     launch_counts["schur_solve_fused"] += 1
     return dx, d_rho, pred
+
+
+# ----------------------------------------------------------------------------
+# IMU preintegration: the midpoint scan and its whitening tail
+# ----------------------------------------------------------------------------
+
+
+def preint_scan(dts: Tensor, accs: Tensor, gyrs: Tensor, acc0: Tensor,
+                gyr0: Tensor, ba: Tensor, bg: Tensor, noise,
+                with_cov: bool = True):
+    """`preintegration.preintegrate` of a batch of padded IMU pairs.
+
+    dts [...,N], accs and gyrs [...,N,3], acc0, gyr0, ba and bg [...,3]
+    (broadcast to the batch), `noise` an `ImuNoise` (its `noise_cov18` is
+    read as a diagonal) → `Preintegrated`, in
+    the type of `accs` (float32 or float64). On CUDA tensors: one launch, one
+    block per pair, whatever the batch's shape, the scan stopped after each
+    pair's last row whose dt is not 0, the covariance's Cholesky inverse in
+    the same launch; nothing is read back to the host. On CPU tensors: the
+    plain version, `preintegration.preintegrate_plain`."""
+    from anticipated_vins_mono_torch.ops import preintegration as pre
+    if not accs.is_cuda:
+        return pre.preintegrate_plain(dts, accs, gyrs, acc0, gyr0, ba, bg,
+                                      noise, with_cov)
+    dtype, dev = accs.dtype, accs.device
+    if dtype not in (torch.float32, torch.float64):
+        raise TypeError(f"accs: the kernel takes float32 or float64, got "
+                        f"{dtype}")
+    if accs.dim() < 2 or accs.shape[-1] != 3:
+        raise ValueError(f"accs: expected [...,N,3], got {tuple(accs.shape)}")
+    batch, n = tuple(accs.shape[:-2]), accs.shape[-2]
+    for name, x, shape in (("gyrs", gyrs, accs.shape),
+                           ("dts", dts, accs.shape[:-1])):
+        if tuple(x.shape) != tuple(shape) or x.device != dev:
+            raise ValueError(f"{name}: expected {tuple(shape)} on {dev}, got "
+                             f"{tuple(x.shape)} on {x.device}")
+    for name, x in (("acc0", acc0), ("gyr0", gyr0), ("ba", ba), ("bg", bg)):
+        if x.device != dev:
+            raise ValueError(f"{name}: on {x.device}, expected {dev}")
+    ins = [dts.to(dtype).contiguous(), accs.contiguous(),
+           gyrs.to(dtype).contiguous()] + [
+        x.to(dtype).expand(batch + (3,)).contiguous()
+        for x in (acc0, gyr0, ba, bg)]
+    # Q's diagonal, as the loop builds Q, passed by value
+    var = (ctypes.c_double * 18)(
+        *noise.noise_cov18(torch.float64).diagonal().tolist())
+    empty = lambda *shape: torch.empty(batch + shape, dtype=dtype, device=dev)
+    outs = [empty(3), empty(4), empty(3), empty(15, 15), empty(15, 15),
+            empty(), empty(15, 15) if with_cov else None]
+    lib = build_kernels()["preint_scan"]
+    with torch.cuda.device(dev):
+        err = lib.avm_preint_scan(
+            *(x.data_ptr() for x in ins),
+            *(0 if x is None else x.data_ptr() for x in outs),
+            math.prod(batch), n, int(with_cov), int(dtype == torch.float64),
+            ctypes.addressof(var), noise.dt_ref,
+            torch.cuda.current_stream().cuda_stream)
+    _raise_on(err, "preint_scan")
+    launch_counts["preint_scan"] += 1
+    dp, dq, dv, J, P, dt_sum, S = outs
+    return pre.Preintegrated(dp, dq, dv, J, P, dt_sum, ba.to(dtype),
+                             bg.to(dtype), S)

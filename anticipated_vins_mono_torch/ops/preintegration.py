@@ -7,7 +7,12 @@ here the sample loop is a Python loop and every tensor carries the pairs
 N samples each costs N steps, not W·N.
 
 Raw IMU samples live in padded buffers [..., N, ·]; padding rows carry
-dt = 0, which makes the midpoint update an exact no-op.
+dt = 0, which makes the midpoint update an exact no-op but for the
+renormalisation of δq.
+
+On the card the whole scan of a call is one launch of a hand-written kernel
+(`csrc/preint_scan.cu` through `hopper_kernels.preint_scan`); the loop below,
+`preintegrate_plain`, is its plain version and the path for CPU tensors.
 
 State-block layout: [0:3]=δp, [3:6]=δθ, [6:9]=δv, [9:12]=δba, [12:15]=δbg.
 """
@@ -18,7 +23,7 @@ from typing import NamedTuple, Optional
 
 import torch
 
-from anticipated_vins_mono_torch.ops import lie
+from anticipated_vins_mono_torch.ops import hopper_kernels, lie
 from anticipated_vins_mono_torch.utils.timing import spanned
 
 Tensor = torch.Tensor
@@ -151,9 +156,22 @@ def preintegrate(dts: Tensor, accs: Tensor, gyrs: Tensor,
       acc0/gyr0: [...,3] the sample at the start of each interval.
       ba/bg: [...,3] linearization-point biases.
 
-    The leading dimensions (frame pairs, scenarios) are integrated together;
-    the loop runs over the N samples only.
+    The leading dimensions (frame pairs, scenarios) are integrated together.
+    CUDA tensors take one launch of the preintegration kernel, CPU tensors
+    the loop over the N samples (`preintegrate_plain`).
     """
+    return hopper_kernels.preint_scan(dts, accs, gyrs, acc0, gyr0, ba, bg,
+                                      noise, with_cov)
+
+
+def preintegrate_plain(dts: Tensor, accs: Tensor, gyrs: Tensor,
+                       acc0: Tensor, gyr0: Tensor,
+                       ba: Tensor, bg: Tensor,
+                       noise: ImuNoise,
+                       with_cov: bool = True) -> Preintegrated:
+    """`preintegrate` as a loop over the N samples, every pair at once: the
+    plain version of the preintegration kernel. Arguments as
+    `preintegrate`."""
     dtype, dev = accs.dtype, accs.device
     batch = accs.shape[:-2]
     ncov = noise.noise_cov18(dtype, dev)

@@ -452,3 +452,27 @@ def schur_batch(B: int, D: int, F: int, device="cuda"):
     systems = [systems[b % len(systems)] for b in range(B)]
     return [torch.from_numpy(np.stack([s[i] for s in systems])).to(device)
             for i in range(6)]
+
+
+def imu_pairs(seed: int, batch=(10,), n: int = 64, real: int = 20,
+              interior=(), dtype=torch.float32, device="cuda"):
+    """Padded IMU pairs as the frame step holds them: `real` rows of 5 ms
+    (200 Hz over a 10 Hz frame), then dt = 0 padding to `n` with zero
+    samples, as `pack_frame` leaves it; the rows in `interior` get dt = 0
+    but keep their samples. Returns `preintegrate`'s first seven arguments
+    (dts, accs, gyrs, acc0, gyr0, ba, bg)."""
+    rng = np.random.default_rng(seed)
+    batch = tuple(batch)
+    dts = np.zeros(batch + (n,))
+    dts[..., :real] = 0.005
+    dts[..., list(interior)] = 0.0
+    accs = rng.normal(size=batch + (n, 3)) * 0.5 + [0.0, 0.0, 9.8]
+    gyrs = rng.normal(size=batch + (n, 3)) * 0.5
+    accs[..., real:, :] = 0.0
+    gyrs[..., real:, :] = 0.0
+    acc0 = rng.normal(size=batch + (3,)) * 0.5 + [0.0, 0.0, 9.8]
+    gyr0 = rng.normal(size=batch + (3,)) * 0.5
+    ba = rng.normal(size=batch + (3,)) * 0.02
+    bg = rng.normal(size=batch + (3,)) * 0.005
+    return [torch.tensor(x, dtype=dtype, device=device)
+            for x in (dts, accs, gyrs, acc0, gyr0, ba, bg)]

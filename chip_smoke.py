@@ -53,8 +53,9 @@ EuRoC runner `utils/benchmark.run_one` over a ground-truth CSV written from
 the analytic trajectory plus a full-width checkpoint round trip, and
 `utils/calibration` from 8 rendered chessboard views.
 
-It builds the two CUDA kernels from `anticipated_vins_mono_torch/csrc/`,
-holds each against its plain PyTorch version on the card (the logdet kernel
+It builds the CUDA kernels from `anticipated_vins_mono_torch/csrc/` (the
+two that replace Pallas kernels and the IMU preintegration's scan), holds
+each against its plain PyTorch version on the card (the logdet kernel
 through both of its loaders), replays each from a captured CUDA graph, reads
 their phase split from the kernels' clock stamps, shows that each main path
 launched them, times kernels, selector, solver and frame, and checks the
@@ -406,7 +407,7 @@ CALLED_SHAPES = {}
 
 
 def record_called_shapes(hk):
-    """Wrap the three kernel entry points of `hk` so that each call on the
+    """Wrap the four kernel entry points of `hk` so that each call on the
     card records its shape (the wrappers' launch counts are untouched).
     Returns a function that puts the wrappers back."""
     shape_of = {
@@ -415,6 +416,11 @@ def record_called_shapes(hk):
             Deltas.shape),
         "schur_solve_fused": lambda H, g, H_lp, *_: (
             H.shape[0], H.shape[1], H_lp.shape[1]),
+        # (pairs, samples, type, with_cov)
+        "preint_scan": lambda dts, accs, *rest: (
+            accs[..., 0, 0].numel(), accs.shape[-2],
+            str(accs.dtype).split(".")[-1],
+            int(rest[6] if len(rest) > 6 else True)),
     }
     saved = {name: getattr(hk, name) for name in shape_of}
     for name, shape in shape_of.items():
@@ -448,7 +454,85 @@ def check_called_shapes(hk):
     for B, D, F in sorted(CALLED_SHAPES["schur_solve_fused"]):
         schur.append({"B": B, "D": D, "F": F, "max_abs_err": schur_agrees(
             hk, schur_batch(B, D, F))})
-    return {"plain_loader": plain, "fused_loader": fused}, schur
+    preint = [dict(zip(("B", "N", "dtype", "with_cov"), key), **preint_agrees(
+        hk, *key)) for key in sorted(CALLED_SHAPES["preint_scan"])]
+    return {"plain_loader": plain, "fused_loader": fused}, schur, preint
+
+
+# the preintegration kernel's launches are held apart from the other two's:
+# it runs once per `preintegrate` call on the card, wherever a path
+# preintegrates (the `vio` phase holds its count too)
+def solver_launches(counts: dict) -> dict:
+    """The selector's and the solver's kernels' launches of `counts`."""
+    return {k: n for k, n in counts.items() if k != "preint_scan"}
+
+
+def preint_work(B: int, N: int, real: int, with_cov: bool = True):
+    """(bytes, flop) of `preint_scan` on B pairs of N padded samples of which
+    `real` are stepped, float32: every input read once, every output written
+    once; per stepped sample the multiply-adds of F·J (rows 0-8), F·P,
+    (F·P)·Fᵀ and V·Q·Vᵀ over the nonzero entries of F and V (F: 81 of 225,
+    V: 84 of 270), the 3×3 blocks, and the quaternion and the deltas; the
+    tail's Cholesky and inverse (n³/3 each, n = 15)."""
+    outputs = 3 + 4 + 3 + 1 + 2 * 225 + (225 if with_cov else 0)
+    nbytes = B * (N * 7 + 4 * 3 + outputs) * 4
+    f_nnz = [11] * 3 + [4] * 3 + [10] * 3 + [1] * 6
+    v_nz = [0b001111] * 3 + [0b001010] * 3 + [0b001111] * 3 + \
+        [0b010000] * 3 + [0b100000] * 3
+    v_cols = lambda i: sum(3 for b in range(6) if v_nz[i] >> b & 1)
+    vqv = sum(3 * bin(v_nz[i] & v_nz[j]).count("1")
+              for i in range(15) for j in range(15))
+    step = 2 * 15 * sum(f_nnz[:9]) + 2 * 15 * sum(f_nnz) \
+        + 2 * 15 * sum(f_nnz) + 2 * vqv + sum(v_cols(i) for i in range(15)) \
+        + 9 * 9 * 13 + 120 if with_cov else 120
+    tail = 2 * 15 ** 3 / 3 if with_cov else 0
+    return nbytes, B * (real * step + tail)
+
+
+def preint_agrees(hk, B: int, N: int, dtype: str, with_cov: int = 1,
+                  interior=()) -> dict:
+    """The preintegration kernel against its plain version (the loop) on the
+    card, on B seeded pairs of N samples (the frame's pattern: min(N, 20)
+    rows of 5 ms, the rest padding; the rows in `interior` dt = 0).
+    float64: rtol 1e-9 (S rtol 1e-8, P atol 1e-20), as the port against
+    JAX. float32: per field, the kernel's largest distance to the float64
+    loop at most 4 times the float32 loop's plus 8 ulps of the field's size
+    (both are float32 roundings of one scan; the kernel's fused
+    multiply-adds round once where the loop rounds twice). Returns the
+    largest distances, kernel and loop, to the float64 loop, relative to
+    each field's size."""
+    from anticipated_vins_mono_torch.ops import preintegration as pre
+    from anticipated_vins_mono_torch.utils.synthetic import imu_pairs
+    noise = pre.ImuNoise()
+    a64 = imu_pairs(B + N, batch=(B,), n=N, real=min(N, 20),
+                    interior=interior, dtype=torch.float64)
+    ref64 = pre.preintegrate_plain(*a64, noise, with_cov=bool(with_cov))
+    args = a64 if dtype == "float64" else [x.float() for x in a64]
+    got = hk.preint_scan(*args, noise, bool(with_cov))
+    ref = pre.preintegrate_plain(*args, noise, with_cov=bool(with_cov))
+    torch.cuda.synchronize()
+    rel = lambda a, b, s: float((a.double() - b.double()).abs().max()) / s
+    kernel_err, plain_err = 0.0, 0.0
+    for f in pre.Preintegrated._fields:
+        r64, k, r = (getattr(x, f) for x in (ref64, got, ref))
+        if r64 is None:
+            if k is not None:
+                raise AssertionError(f"preint_scan: {f} without covariance")
+            continue
+        scale = max(float(r64.abs().max()), 1e-300)
+        ek, ep = rel(k, r64, scale), rel(r, r64, scale)
+        kernel_err, plain_err = max(kernel_err, ek), max(plain_err, ep)
+        if dtype == "float64":
+            ok = torch.allclose(k, r64, rtol=1e-8 if f == "S" else 1e-9,
+                                atol=1e-20 if f == "P" else 1e-11)
+        else:
+            ok = ek <= 4 * ep + 8 * torch.finfo(torch.float32).eps
+        if not ok or k.shape != r64.shape:
+            raise AssertionError(
+                f"preint_scan disagrees at {(B, N, dtype, with_cov)}, {f}: "
+                f"{ek} vs the loop's {ep} (relative to the float64 loop)")
+    return {"max_rel_err_vs_f64_loop": kernel_err,
+            "plain_max_rel_err_vs_f64_loop": plain_err}
 
 
 # ----------------------------------------------------------------------------
@@ -638,8 +722,71 @@ def phase_kernels(hk):
     schur["f192"] = schur_f192(hk)
     schur["curve_batches"] = schur_curve_batches(hk)
     logdet["capstone_batch"] = logdet_capstone_batch(hk)
-    emit({"phase": "kernel_check", "checked": [logdet, schur]})
-    return logdet, schur
+    preint = preint_kernel(hk)
+    emit({"phase": "kernel_check", "checked": [logdet, schur, preint]})
+    return logdet, schur, preint
+
+
+def preint_kernel(hk):
+    """The preintegration kernel at the frame step's shape, [10, 64] float32
+    with the frame's padding (20 rows of 5 ms, 44 of dt = 0), against its
+    plain version (the loop) at `preint_agrees`'s tolerances, with interior
+    dt = 0 rows, in float64, without the covariance, on a covariance that is
+    not positive definite (S all NaN, as the loop's); replayed from a CUDA
+    graph and timed beside its bound, the loop's time and one eager call's
+    (the wrapper's host time included)."""
+    from anticipated_vins_mono_torch.ops import preintegration as pre
+    from anticipated_vins_mono_torch.utils.synthetic import imu_pairs
+
+    class NegativeNoise(pre.ImuNoise):
+        def noise_cov18(self, dtype=torch.float64, device=None):
+            return -super().noise_cov18(dtype, device)
+
+    B, N, real = 10, 64, 20
+    checked = [dict(zip(("B", "N", "dtype", "with_cov", "interior"), key),
+                    **preint_agrees(hk, *key))
+               for key in ((B, N, "float32", 1, ()), (B, N, "float64", 1, ()),
+                           (B, N, "float32", 0, ()),
+                           (B, N, "float32", 1, (3, 4, 11)),
+                           (B, N, "float64", 1, (3, 4, 11)),
+                           (3, 80, "float32", 1, ()))]
+    noise = pre.ImuNoise()
+    for dtype in (torch.float32, torch.float64):
+        args = imu_pairs(4, batch=(B,), dtype=dtype)
+        got = hk.preint_scan(*args, NegativeNoise())
+        ref = pre.preintegrate_plain(*args, NegativeNoise())
+        if not (torch.isnan(got.S).all() and torch.isnan(ref.S).all()
+                and torch.isfinite(got.dp).all()):
+            raise AssertionError("preint_scan: S on a covariance that is not "
+                                 "positive definite")
+    args = imu_pairs(1, batch=(B,), n=N, real=real)
+    run = lambda: hk.preint_scan(*args, noise)
+    eager = run()
+    replayed = graph_replay(run)
+    if not all(a is None and b is None or torch.equal(a, b)
+               for a, b in zip(replayed, eager)):
+        raise AssertionError("preint_scan: graph replay differs from eager")
+    ms = kernel_ms(run)
+    args64 = [x.double() for x in args]
+    b_ms, b_by = bound(*preint_work(B, N, real))
+    return {
+        "name": "preint_scan", "route": "cuda",
+        "source": "anticipated_vins_mono_torch/csrc/preint_scan.cu",
+        "replaces": "no TPU kernel: the lax.scan of "
+                    "anticipated_vins_mono_tpu/ops/preintegration.py",
+        "shape": {"B": B, "N": N, "real": real, "dtype": "float32"},
+        "tolerance": "f32: 4x the loop's distance to the f64 loop + 8 ulps; "
+                     "f64: rtol 1e-9 (S 1e-8)",
+        "checked": checked,
+        "max_rel_err": max(c["max_rel_err_vs_f64_loop"] for c in checked
+                           if c["dtype"] == "float32"),
+        "ms": ms,
+        "f64_ms": kernel_ms(lambda: hk.preint_scan(*args64, noise)),
+        "eager_ms": cuda_ms(run, 20, 2),
+        "plain_ms": cuda_ms(lambda: pre.preintegrate_plain(*args, noise), 3, 1),
+        "bound_ms": b_ms, "bound_by": b_by,
+        "bound_note": "a chain of 20 dependent steps, not bytes or flop",
+    }
 
 
 def logdet_capstone_batch(hk):
@@ -813,6 +960,7 @@ def drive_vio(hk, pr, traj, dtype, n_steps=None):
             f"weight {float(st.prior.weight)}, {prior_rows} prior rows")
     t_est = np.array([fm.t for fm in frames[first:last]])
     return {"frames": T, "counts": counts, "prior_rows": prior_rows,
+            "keyframes": int(out["keyframe"].sum()),
             "keyframe_fraction": float(out["keyframe"].double().mean()),
             "ate_rmse_m": ate_rmse(t_est, p, traj.t, traj.p),
             "ms_per_frame_median": float(np.median(ms[5:])),
@@ -824,7 +972,11 @@ def drive_vio(hk, pr, traj, dtype, n_steps=None):
 
 
 def check_vio_counts(tag, run, per_frame):
+    """Exact launches: `per_frame` of the selector's and solver's kernels,
+    and the preintegration kernel once a frame (the measurements) and once
+    more a keyframe (`_margin_old`'s)."""
     want = {name: n * run["frames"] for name, n in per_frame.items()}
+    want["preint_scan"] = run["frames"] + run["keyframes"]
     if run["counts"] != want:
         raise AssertionError(f"{tag}: launched {run['counts']}, wanted {want}")
 
@@ -832,7 +984,9 @@ def check_vio_counts(tag, run, per_frame):
 def phase_vio(hk):
     """The whole per-frame step over a simulated sequence at full width:
     float32 with both kernels on, then the same sequence in float64 through
-    `torch.linalg` (no kernel: the port's own f64 route) as the yardstick."""
+    `torch.linalg` (no selector or solver kernel: the port's own f64 route)
+    as the yardstick. Both preintegrate through the preintegration kernel,
+    in their own type."""
     from anticipated_vins_mono_torch.utils import deployment as dep
     from anticipated_vins_mono_torch.utils.synthetic import (
         analytic_trajectory, stopped_trajectory)
@@ -957,7 +1111,7 @@ def check_host_run(tag, run, per_solve_schur, per_call_logdet):
     from anticipated_vins_mono_torch.utils import deployment as dep
     want = {"logdet_psd_batched": per_call_logdet * run["anticipate_calls"],
             "schur_solve_fused": per_solve_schur * run["solves"]}
-    if run["counts"] != want:
+    if solver_launches(run["counts"]) != want:
         raise AssertionError(f"{tag}: launched {run['counts']}, wanted {want}")
     if run["failures"] or not run["initialized"] or run["solves"] < 1:
         raise AssertionError(f"{tag}: {run['failures']} failures, "
@@ -1518,7 +1672,7 @@ def phase_loop(hk, smi):
     wall = time.perf_counter() - t0
     counts = dict(hk.launch_counts)
     want = {"logdet_psd_batched": 0, "schur_solve_fused": 8 * run["solves"]}
-    if counts != want:
+    if solver_launches(counts) != want:
         raise AssertionError(f"loop pass launched {counts}, wanted {want}")
     # every accepted edge near the ground truth's relative pose (a broken
     # verification), and the PGO's path no worse than the bound allows
@@ -1699,7 +1853,8 @@ def capstone_runs(jobs, flags=()) -> list:
                         f"{proc.returncode}\n{text[-4000:]}")
                 rec = json.loads(text.strip().splitlines()[-1])["capstone_run"]
                 want = capstone_launches(variant, rec["rows"])
-                if want is not None and rec["launches"] != want:
+                if want is not None and \
+                        solver_launches(rec["launches"]) != want:
                     raise AssertionError(
                         f"capstone {variant} seed {seed} launched "
                         f"{rec['launches']}, wanted {want}")
@@ -1774,7 +1929,7 @@ def phase_stream(hk, smi):
     # per-frame-synchronised run (one more untimed frame) and the staged run
     calls = 1 + rows["n_frames"] + 1 + 2 * rows["staged_frames"]
     want = {"logdet_psd_batched": 30 * calls, "schur_solve_fused": 8 * calls}
-    if counts != want:
+    if solver_launches(counts) != want:
         raise AssertionError(f"stream launched {counts}, wanted {want}")
     if not (np.isfinite(rows["cost_final_mean"])
             and rows["selected_per_frame_mean"] == 30.0):
@@ -1936,7 +2091,7 @@ def phase_euroc(hk, smi):
             euroc.REFERENCE_GT_DIR = gt_dir
         # the runner's defaults, as the JAX runner's: the f64 Schur path and
         # "lowrank" scoring, so neither kernel runs here
-        if any(counts.values()):
+        if any(solver_launches(counts).values()):
             raise AssertionError(f"euroc: launched {counts}, wanted none")
         if not (row["initialized"] and row["failures"] == 0
                 and row["ate_rmse"] < EUROC_ATE_BOUND_M):
@@ -2261,7 +2416,7 @@ def capstone_steps_dump(seed: int) -> int:
     finally:
         ed.vio_step = step
     want = capstone_launches("float32_schur_kernel", rows)
-    if counts != want:
+    if solver_launches(counts) != want:
         raise AssertionError(f"capstone launched {counts}, wanted {want}")
     os.makedirs("chiprun_out", exist_ok=True)
     path = os.path.join("chiprun_out", f"capstone_f32_steps_seed{seed}.npz")
@@ -2310,7 +2465,7 @@ def main() -> int:
     emit({"phase": "device", "kind": kind, "nvidia_smi": smi,
           "torch": torch.__version__, "cuda": torch.version.cuda})
 
-    logdet_k, schur_k = phase_kernels(hk)
+    logdet_k, schur_k, preint_k = phase_kernels(hk)
     restore_wrappers = record_called_shapes(hk)
 
     # ------------------------------------------------------------ main path
@@ -2342,8 +2497,8 @@ def main() -> int:
     st1, d1 = solve(meas, cfg, 1)
     torch.cuda.synchronize()
     counts = dict(hk.launch_counts)
-    if counts != {"logdet_psd_batched": KAPPA,
-                  "schur_solve_fused": 2 * cfg.iters}:
+    if solver_launches(counts) != {"logdet_psd_batched": KAPPA,
+                                   "schur_solve_fused": 2 * cfg.iters}:
         raise AssertionError(f"main path launched {counts}")
     launches = {"select_solve": counts}
 
@@ -2522,16 +2677,17 @@ def main() -> int:
     # the loop pass has no selector and the curve no selector either: they
     # run the Schur kernel only
     runs_on = {"logdet_psd_batched": set(launches) - {"loop", "curve"},
-               "schur_solve_fused": set(launches)}
-    for k in (logdet_k, schur_k):
+               "schur_solve_fused": set(launches),
+               "preint_scan": {"vio"}}
+    for k in (logdet_k, schur_k, preint_k):
         k["launches_by_path"] = {path: c[k["name"]]
                                  for path, c in launches.items()}
         if min(k["launches_by_path"][p] for p in runs_on[k["name"]]) < 1:
             raise AssertionError(f"{k['name']}: a main path never launched it")
         k["launches"] = sum(k["launches_by_path"].values())
     restore_wrappers()
-    logdet_k["called_shapes"], schur_k["called_shapes"] = \
-        check_called_shapes(hk)
+    (logdet_k["called_shapes"], schur_k["called_shapes"],
+     preint_k["called_shapes"]) = check_called_shapes(hk)
     logdet_k["max_abs_err"] = max(
         [logdet_k["max_abs_err"], logdet_k["capstone_batch"]["max_abs_err"]]
         + [c["max_abs_err"] for loader in logdet_k["called_shapes"].values()
@@ -2540,8 +2696,12 @@ def main() -> int:
         [schur_k["max_abs_err"], schur_k["f192"]["max_abs_err"]]
         + [c["max_abs_err"] for c in schur_k["called_shapes"]
            + schur_k["curve_batches"]])
+    preint_k["max_rel_err"] = max(
+        [preint_k["max_rel_err"]]
+        + [c["max_rel_err_vs_f64_loop"] for c in preint_k["called_shapes"]
+           if c["dtype"] == "float32"])
 
-    emit({"kernels": [logdet_k, schur_k]})
+    emit({"kernels": [logdet_k, schur_k, preint_k]})
     emit({"phase": "done", "seconds": round(time.perf_counter() - t_start, 1)})
     print(smi, flush=True)
     emit({"ok": True, "device": {"platform": "gpu", "kind": kind,
