@@ -24,7 +24,12 @@ Where the two differ: `lax.reduce_window(..., "SAME")` pads an even window
 asymmetrically ((k-1)//2 below, k//2 above), so the NMS pads explicitly and
 then pools without padding; `lax.top_k` breaks ties toward the lower index
 and `torch.topk` promises no order among equal values, so detection takes a
-stable descending sort. Images are float32 whatever the caller passes.
+stable descending sort. Images are float32 whatever the caller passes; an
+8-bit image (uint8, a camera's grey frame) goes to the device as uint8 and
+is scaled to [0, 1] there. `lk_track(follow_flow=True)` cuts each level's
+search patch around the flow the coarser levels found, as OpenCV does; the
+JAX package has only the form that cuts it around the previous corner
+(the default here).
 """
 
 from __future__ import annotations
@@ -46,10 +51,18 @@ from anticipated_vins_mono_torch.ops import cameras
 
 def as_image(img, device) -> Tensor:
     """An image (tensor or numpy array) as a float32 tensor on `device`; a
-    numpy array is copied, never shared."""
-    if torch.is_tensor(img):
-        return img.to(device=device, dtype=torch.float32)
-    return torch.tensor(np.asarray(img, np.float32), device=device)
+    numpy array is copied, never shared. An 8-bit image (uint8, 0-255) is
+    copied to `device` as uint8, a quarter of the bytes of float32, and
+    divided by 255 there: the same float32 values as `as_image(img / 255)`,
+    since both round the exact quotient once."""
+    if not torch.is_tensor(img):
+        img = np.asarray(img)
+        if img.dtype != np.uint8:
+            return torch.tensor(np.asarray(img, np.float32), device=device)
+        img = torch.from_numpy(img)
+    if img.dtype == torch.uint8:
+        return img.to(device).to(torch.float32) / 255.0
+    return img.to(device=device, dtype=torch.float32)
 
 
 def _pad_edge(x: Tensor, axis: int, lo: int, hi: int) -> Tensor:
@@ -249,7 +262,8 @@ def _shift_sample(P: Tensor, iy: Tensor, ix: Tensor, fy: Tensor,
 
 
 def lk_track(prev_pyr, cur_pyr, pts: Tensor, valid: Tensor, half: int = 7,
-             iters: int = 10, levels: int = 3, pad: int = 8):
+             iters: int = 10, levels: int = 3, pad: int = 8,
+             follow_flow: bool = False):
     """Pyramidal Lucas-Kanade: track `pts` [N,2] from prev to cur.
 
     Mirrors cv::calcOpticalFlowPyrLK usage (feature_tracker.cpp:54-60,
@@ -259,6 +273,15 @@ def lk_track(prev_pyr, cur_pyr, pts: Tensor, valid: Tensor, half: int = 7,
     filter, and every Gauss-Newton iteration samples the moving window with
     a per-feature slice + the same filter. `pad` bounds the per-level
     search excursion (flow beyond it clamps and fails the residual check).
+
+    With `follow_flow=False` (the JAX package's form) every level cuts the
+    current image's patch around the previous corner, so the whole flow at
+    the finest level must lie within `pad` pixels: a larger shift is not
+    followed (ROADMAP queue C 15). With `follow_flow=True` each level cuts
+    it around the corner plus the whole pixels of the flow carried down from
+    the coarser level, as calcOpticalFlowPyrLK does, and `pad` bounds that
+    level's correction only: a shift of up to about pad·(2^levels − 1)
+    pixels is followed. The JAX package has no such form.
     """
     N = pts.shape[0]
     dtype = pts.dtype
@@ -291,8 +314,12 @@ def lk_track(prev_pyr, cur_pyr, pts: Tensor, valid: Tensor, half: int = 7,
         gxy = torch.sum(gx * gy, (-2, -1))
         det = gxx * gyy - gxy * gxy
 
-        # cur-patch gather with excursion margin
+        # cur-patch gather with excursion margin, around the previous
+        # corner or, following the flow, around its whole pixels as well
         Sc = win + 2 * pad + 1
+        if follow_flow:
+            g = torch.floor(flow)
+            p0i, f = p0i + g.long(), f - g
         Pc = _extract_patches(cur_img, p0i - (half + pad), Sc)
 
         fl = flow

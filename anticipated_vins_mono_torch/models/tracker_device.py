@@ -30,6 +30,22 @@ Where the two differ:
   reproduced); an index out of range after wrapping is dropped.
 - The state's time is float32, as in the JAX package, so `dt` is formed in
   float32.
+- `TrackerDeviceParams.follow_flow` (off by default, as the JAX package
+  has it) makes LK cut its search patches around the flow the coarser
+  levels found (`frontend.lk_track`), so that tracks follow shifts past
+  8 px a frame; the JAX package has no such form.
+- `TrackerDeviceParams.ransac_f64` (off by default, as the JAX package
+  has it) fits and gates the RANSAC's hypotheses in float64, as OpenCV's
+  `findFundamentalMat` computes in double. The 8-point systems are close
+  to singular at a frame's motion (second-smallest eigenvalue down to
+  ~1e-10 of the largest), so at 752×480 a float32 fit picks another
+  hypothesis than float64 does in about half the frames and can keep a
+  point 10-18 px off the float64 fit's epipolar lines.
+- An 8-bit frame (uint8) goes to the device as uint8 and is scaled there
+  (`frontend.as_image`).
+- The step's stages are program spans (`utils/timing.span`): `track.step`
+  > `track.upload`, `track.prep`, `track.lk`, `track.ransac`,
+  `track.detect`, `track.refill`, recorded only while a profiler records.
 """
 
 from __future__ import annotations
@@ -43,6 +59,7 @@ from torch import Tensor
 from anticipated_vins_mono_torch.models import frontend as fe
 from anticipated_vins_mono_torch.ops import cameras, lie
 from anticipated_vins_mono_torch.utils import threefry
+from anticipated_vins_mono_torch.utils.timing import span, spanned
 
 
 def ransac_uniforms(key: Tensor, iters: int, n: int,
@@ -121,6 +138,8 @@ class TrackerDeviceParams(NamedTuple):
     ransac_thresh_px: float = 1.0   # F_THRESHOLD px
     levels: int = 3
     ransac_iters: int = 64
+    follow_flow: bool = False      # LK cuts its patches around the flow
+    ransac_f64: bool = False       # the RANSAC's hypotheses in float64
 
 
 def _prep(img: Tensor, levels: int):
@@ -165,6 +184,7 @@ def tracker_init(cam, params: TrackerDeviceParams, img, t,
         key=threefry.prng_key(seed, eq.device))
 
 
+@spanned("track.step")
 def tracker_step(cam, params: TrackerDeviceParams, state: TrackerState,
                  img, t, u: Optional[Tensor] = None):
     """One frame through the full front end; returns (state', measurement).
@@ -179,22 +199,31 @@ def tracker_step(cam, params: TrackerDeviceParams, state: TrackerState,
     p = params
     N = p.max_features
     dev = state.pts.device
-    t = torch.tensor(t, dtype=torch.float32, device=dev)
-    eq, pyr = _prep(fe.as_image(img, dev), p.levels)
+    with span("track.upload"):
+        t = torch.tensor(t, dtype=torch.float32, device=dev)
+        img = fe.as_image(img, dev)
+    with span("track.prep"):
+        eq, pyr = _prep(img, p.levels)
 
     # -- track forward
-    new_pts, lk_ok = fe.lk_track(state.pyr, pyr, state.pts,
-                                 state.active.to(state.pts.dtype),
-                                 levels=p.levels)
-    ok = lk_ok & state.active
+    with span("track.lk"):
+        new_pts, lk_ok = fe.lk_track(state.pyr, pyr, state.pts,
+                                     state.active.to(state.pts.dtype),
+                                     levels=p.levels,
+                                     follow_flow=p.follow_flow)
+        ok = lk_ok & state.active
 
     # -- outlier rejection on the normalized plane (rejectWithF)
-    n_new = cameras.lift_projective(cam, new_pts)[:, :2]
-    key, k1 = threefry.split(state.key)
-    if u is None:
-        u = ransac_uniforms(k1, p.ransac_iters, N, state.norm.dtype)
-    ok = ransac_essential_mask(state.norm, n_new, ok, u,
-                               thresh=p.ransac_thresh_px / cam.fx)
+    with span("track.ransac"):
+        n_new = cameras.lift_projective(cam, new_pts)[:, :2]
+        key, k1 = threefry.split(state.key)
+        if u is None:
+            u = ransac_uniforms(k1, p.ransac_iters, N, state.norm.dtype)
+        x1, x2, fx = state.norm, n_new, cam.fx
+        if p.ransac_f64:
+            x1, x2, fx = x1.double(), x2.double(), fx.double()
+        ok = ransac_essential_mask(x1, x2, ok, u,
+                                   thresh=p.ransac_thresh_px / fx)
     return _top_up(cam, p, state._replace(key=key), eq, pyr, new_pts, ok, t)
 
 
@@ -206,6 +235,7 @@ def _top_up(cam, p: TrackerDeviceParams, state: TrackerState, eq: Tensor,
                    _detect_free(p, eq, new_pts, ok))
 
 
+@spanned("track.detect")
 def _detect_free(p: TrackerDeviceParams, eq: Tensor, new_pts: Tensor,
                  ok: Tensor):
     """Top-up detection in the regions the kept tracks leave unoccupied:
@@ -214,6 +244,7 @@ def _detect_free(p: TrackerDeviceParams, eq: Tensor, new_pts: Tensor,
     return fe.detect_features(eq, occ, p.max_features, p.min_dist)
 
 
+@spanned("track.refill")
 def _refill(cam, p: TrackerDeviceParams, state: TrackerState, pyr: tuple,
             new_pts: Tensor, ok: Tensor, t: Tensor, detected):
     """Slot bookkeeping (the free slots take the `detected` corners in rank

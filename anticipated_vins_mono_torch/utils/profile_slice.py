@@ -149,13 +149,7 @@ def device_busy(fn) -> dict:
 def span_split(fn, reps: int, top: str) -> dict:
     """Where `reps` calls of `fn()` go, from the spans the program records
     in them under the profiler (`utils/timing.span`; `top` is the name of
-    the call's outermost span). Per span name, per call, each span with
-    what nests in it: `host_ms`; `device_busy_ms`, the card's busy time
-    inside the spans; `syncs`, the host synchronisations the program's
-    counter saw; `profiler_syncs`, the host calls that wait for the card
-    as the profiler saw them (`SYNC_CALLS`); `launches`, the host's kernel
-    and graph launch calls; `spans`, how many ran. Beside: the share of
-    the outermost spans that no child span covers (`uncovered_share`)."""
+    the call's outermost span): `split_of` over them."""
     fn()
     _sync()
     timing.reset_recorded()
@@ -163,8 +157,22 @@ def span_split(fn, reps: int, top: str) -> dict:
         for _ in range(reps):
             fn()
             _sync()
-    spans = timing.recorded()
+    out = split_of(timing.recorded(), prof, top)
     timing.reset_recorded()
+    return out
+
+
+def split_of(spans: list, prof, top: str) -> dict:
+    """The split of recorded `spans` (`timing.recorded()`) whose outermost
+    spans are named `top`, over the events of the profile `prof` that
+    recorded them. Per span name, per call, each span with what nests in
+    it: `host_ms`; `device_busy_ms`, the card's busy time inside the spans;
+    `syncs`, the host synchronisations the program's counter saw;
+    `profiler_syncs`, the host calls that wait for the card as the profiler
+    saw them (`SYNC_CALLS`); `launches`, the host's kernel and graph launch
+    calls; `spans`, how many ran. Beside: the share of the outermost spans
+    that no child span covers (`uncovered_share`) and the counted syncs
+    per call by the line that made them (`sync_sites`)."""
     events = list(prof.profiler.kineto_results.events())
     busy = _Busy(events)
     stamps = lambda names: sorted(  # noqa: E731
@@ -195,7 +203,9 @@ def span_split(fn, reps: int, top: str) -> dict:
     child = sum(sp.end_ns - sp.start_ns for sp in spans if sp.parent in ids)
     whole = sum(sp.end_ns - sp.start_ns for sp in outer)
     return {"calls": n, "split": split,
-            "uncovered_share": 1.0 - child / whole if whole else None}
+            "uncovered_share": 1.0 - child / whole if whole else None,
+            "sync_sites": {site: c / n
+                           for site, c in timing.sync_sites().items()}}
 
 
 def profile_selector(prob, cfg, reps: int) -> dict:

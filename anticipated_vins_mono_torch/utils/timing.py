@@ -22,8 +22,9 @@ device's kernel intervals. The outermost span of a call starts a unit
 (one frame, one solve); nested spans carry its id. While an outermost
 span is open, every host synchronisation that torch's sync check sees
 (`torch.cuda.set_sync_debug_mode`) is counted against the innermost open
-span instead of being shown. `recorded()` returns the spans,
-`reset_recorded()` clears them; nothing is written to disk.
+span instead of being shown, and by the line that made it
+(`sync_sites()`). `recorded()` returns the spans, `reset_recorded()`
+clears them and the sites; nothing is written to disk.
 
 `TicToc` times the host clock. Around asynchronous CUDA work it measures
 the time to launch that work unless the caller synchronises the device
@@ -39,7 +40,7 @@ import os
 import struct
 import time
 import warnings
-from collections import defaultdict
+from collections import Counter, defaultdict
 from typing import NamedTuple, Optional
 
 import torch
@@ -141,12 +142,15 @@ class Span(NamedTuple):
     syncs: int
 
 
+# a sync site's file is named from this package's directory
+_PACKAGE = "anticipated_vins_mono_torch/"
 # torch's warning at a synchronising CUDA operation, in sync debug mode "warn"
 SYNC_WARNING = "called a synchronizing CUDA operation"
 
 _NO_SPAN = contextlib.nullcontext()
 _RECORDED: list = []     # Span, in order of opening; None while open
 _OPEN: list = []         # the open _Span objects, innermost last
+_SITES: Counter = Counter()   # "file:line" of each counted sync
 
 
 def span(name: str):
@@ -174,9 +178,17 @@ def recorded() -> list:
     return [s for s in _RECORDED if s is not None]
 
 
+def sync_sites() -> dict:
+    """{"file:line": count} of the host synchronisations counted since the
+    last `reset_recorded()`; a file of this package is named from it."""
+    return dict(_SITES)
+
+
 def reset_recorded() -> None:
-    """Forget the recorded spans. Call it between units, not inside one."""
+    """Forget the recorded spans and sync sites. Call it between units, not
+    inside one."""
     _RECORDED.clear()
+    _SITES.clear()
 
 
 class _Span:
@@ -230,6 +242,8 @@ class _SyncCount:
         def show(message, category, filename, lineno, file=None, line=None):
             if str(message).startswith(SYNC_WARNING) and _OPEN:
                 _OPEN[-1].syncs += 1
+                name = filename.replace(os.sep, "/").split(_PACKAGE)[-1]
+                _SITES[f"{name}:{lineno}"] += 1
             else:
                 shown(message, category, filename, lineno, file, line)
         warnings.showwarning = show

@@ -250,3 +250,67 @@ def test_lk_track_equals_jax_past_its_window(shift):
     ok = out_ok.numpy()
     err = np.abs(out_pts.numpy()[ok] - pts[ok] - np.array(shift)).max(-1)
     assert ok.sum() >= 8 and (err > 4.0).all(), err
+
+
+def _smooth_texture(H=320, W=384, seed=1, blocks=(32, 64)):
+    """Random blocks of 32 and 64 px, each blurred in proportion to its
+    size: structure at the scale of the coarsest level of a 4-level
+    pyramid (a 48 px shift is 6 px there), where the 4×4 blocks of
+    `_texture` are averaged away."""
+    rng = np.random.default_rng(seed)
+    img = torch.zeros((H, W))
+    for block in blocks:
+        base = rng.random((-(-H // block), -(-W // block)))
+        t = torch.tensor(np.kron(base, np.ones((block, block)))[:H, :W]
+                         .astype(np.float32))
+        for _ in range(block // 4):
+            t = tfe._blur3(t)
+        img += t / len(blocks)
+    return img.numpy()
+
+
+@pytest.mark.parametrize("shift", [(10, 0), (0, -25), (-48, 0)])
+def test_lk_track_follow_flow_tracks_past_its_window(shift):
+    """`follow_flow=True` cuts each level's patch around the flow carried
+    down from the coarser level (calcOpticalFlowPyrLK's form, ROADMAP queue
+    C 15), so a whole-pixel shift of 10, 25 or 48 px is followed: every
+    point within 0.25 px of the truth, as on a shift inside the window
+    (`test_lk_track_equals_jax_on_a_known_shift`). The JAX form on the
+    same frames is more than 4 px off on most of them. Four levels, as the `euroc_tracker`
+    configuration has: the coarsest sees a 48 px shift as 6 px, inside
+    its ±8 px window, where the texture has structure at that scale (on
+    finer textures some points of a 48 px shift do not converge there in
+    10 iterations, in either form)."""
+    img = _smooth_texture()
+    img2 = np.roll(img, (shift[1], shift[0]), axis=(0, 1))
+    rng = np.random.default_rng(1)
+    pts = rng.uniform([130, 110], [250, 210], (32, 2)).astype(np.float32)
+    val = np.ones(len(pts), np.float32)
+    p1 = tuple(tfe.build_pyramid(_t(img), 4))
+    p2 = tuple(tfe.build_pyramid(_t(img2), 4))
+    errs = {}
+    for follow in (True, False):
+        out, ok = tfe.lk_track(p1, p2, _t(pts), _t(val), levels=4,
+                               follow_flow=follow)
+        errs[follow] = np.abs(out.numpy() - pts - np.array(shift)).max(-1)
+        if follow:
+            assert ok.numpy().all()
+    np.testing.assert_array_less(errs[True], 0.25)
+    assert np.median(errs[False]) > 4.0, errs[False]
+
+
+@pytest.mark.parametrize("kind", ["numpy", "tensor"])
+def test_as_image_of_uint8_equals_the_scaled_float(kind):
+    """An 8-bit frame goes to the device as uint8 and is divided by 255
+    there: exactly the float32 image of `img / 255`, every value 0-255
+    included."""
+    rng = np.random.default_rng(3)
+    img = rng.integers(0, 256, (120, 160), dtype=np.uint8)
+    img[0, :256 - 160] = np.arange(160, 256)
+    img[1, :160] = np.arange(160)
+    src = img if kind == "numpy" else torch.from_numpy(img)
+    out = tfe.as_image(src, "cpu")
+    ref = tfe.as_image(img / 255, "cpu")
+    assert out.dtype == torch.float32
+    assert torch.equal(out, ref)
+    assert src is not out and int(img[5, 5]) == int(src[5, 5])

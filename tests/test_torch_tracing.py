@@ -8,9 +8,12 @@ tiny `vio_step` records its stages nested in one `vio.step`; each span's
 stamps lie within 100 µs of the profiler's annotation of the same name,
 and the outputs are bit for bit those of the same call without the
 profiler. The sync counter is held on the warning torch raises at a
-synchronising CUDA operation, emitted here by hand (no card on the CPU).
+synchronising CUDA operation, emitted here by hand (no card on the CPU),
+and by the line that raised it.
 """
 
+import inspect
+import os
 import warnings
 
 import numpy as np
@@ -211,3 +214,21 @@ def test_syncs_counted_against_the_innermost_span():
     assert (outer.name, outer.syncs, inner.name, inner.syncs) == \
         ("outer", 1, "inner", 3)
     assert seen == ["not a sync", timing.SYNC_WARNING]
+
+
+def test_sync_sites_counted_by_line():
+    timing.reset_recorded()
+    with warnings.catch_warnings():
+        warnings.simplefilter("always")
+        with profile(activities=[ProfilerActivity.CPU]):
+            with timing.span("outer"):
+                line = inspect.currentframe().f_lineno + 1
+                warnings.warn(timing.SYNC_WARNING)
+                with timing.span("inner"):
+                    for _ in range(2):
+                        warnings.warn(timing.SYNC_WARNING)
+    here = __file__.replace(os.sep, "/")
+    assert timing.sync_sites() == {f"{here}:{line}": 1,
+                                   f"{here}:{line + 3}": 2}
+    timing.reset_recorded()
+    assert timing.sync_sites() == {}

@@ -392,3 +392,41 @@ def test_occupancy_equals_jax_with_inactive_slots(min_dist):
                              min_dist).numpy()
         np.testing.assert_array_equal(out, ref)
         assert out[-1, -1] == (0.0 if act.all() else 1.0)
+
+
+TRACK_SPANS = {"track.step", "track.upload", "track.prep", "track.lk",
+               "track.ransac", "track.detect", "track.refill"}
+
+
+@pytest.mark.parametrize("follow_flow", [False, True])
+def test_tracker_step_records_its_spans_only_under_a_profiler(run,
+                                                              follow_flow):
+    """The step's seven spans (`track.step` the unit, the six stages inside
+    it) are recorded only while a profiler records, once each a frame, and
+    the step's state and measurement are the same either way; an 8-bit
+    frame is taken as the same frame scaled by 1/255."""
+    from anticipated_vins_mono_torch.utils import timing
+    tp = ttd.TrackerDeviceParams(**PARAMS, follow_flow=follow_flow)
+    st0 = ttd.tracker_init(run["tcam"], tp, run["imgs"][0], run["ts"][0])
+    img = np.round(np.asarray(run["imgs"][1]) * 255).astype(np.uint8)
+    step = lambda: ttd.tracker_step(run["tcam"], tp, st0, img, run["ts"][1])
+    timing.reset_recorded()
+    plain = step()
+    assert timing.recorded() == []
+    with torch.profiler.profile(activities=[
+            torch.profiler.ProfilerActivity.CPU]):
+        traced = step()
+    spans = timing.recorded()
+    timing.reset_recorded()
+    assert sorted(s.name for s in spans) == sorted(TRACK_SPANS)
+    top = [s for s in spans if s.parent is None]
+    assert [s.name for s in top] == ["track.step"]
+    assert all(s.unit == top[0].id for s in spans)
+    assert all(s.parent == top[0].id for s in spans if s is not top[0])
+    for a, b in zip(jax.tree_util.tree_leaves(plain),
+                    jax.tree_util.tree_leaves(traced)):
+        assert torch.equal(a, b)
+    scaled = ttd.tracker_step(run["tcam"], tp, st0, img / 255, run["ts"][1])
+    for a, b in zip(jax.tree_util.tree_leaves(plain),
+                    jax.tree_util.tree_leaves(scaled)):
+        assert torch.equal(a, b)
