@@ -14,11 +14,15 @@ Both kernels factor through one blocked in-shared-memory LDLᵀ
 (`csrc/blocked_ldl.cuh`); `blocked_ldl_plain` is that algorithm in plain
 PyTorch, in the kernel's order, for the tests.
 
-A third kernel replaces no TPU kernel: `preint_scan` runs the IMU
+Two kernels replace no TPU kernel. `preint_scan` runs the IMU
 preintegration's whole midpoint scan of a call, and its Cholesky tail, in
 one launch (`csrc/preint_scan.cu`), float32 or float64, where the JAX
 package has a `lax.scan`; its plain version is the port's loop,
-`preintegration.preintegrate_plain`.
+`preintegration.preintegrate_plain`. `normal_eq_fused` linearizes every
+projection and IMU factor of a window and sums the LM iteration's normal
+equations in one launch (`csrc/normal_eq_fused.cu`), float32 or float64,
+where the JAX package has XLA's linearization; its plain version is
+`window.normal_equations_fast_plain`.
 
 The CUDA sources are compiled with `nvcc` for `sm_90a` at first use, one
 compiler process per source started together, into `build/hopper_kernels/`
@@ -40,6 +44,7 @@ import os
 import shutil
 import subprocess
 from pathlib import Path
+from typing import NamedTuple
 
 import torch
 
@@ -59,7 +64,12 @@ KERNEL_SOURCES = {
     "logdet_psd_batched": "logdet_psd.cu",
     "schur_solve_fused": "schur_solve_fused.cu",
     "preint_scan": "preint_scan.cu",
+    "normal_eq_fused": "normal_eq_fused.cu",
 }
+# flags a source takes besides NVCC_FLAGS: the normal equations' factors
+# round each product and sum on its own, as PyTorch's elementwise operations
+# whose derivatives they follow do
+KERNEL_FLAGS = {"normal_eq_fused": ("-fmad=false",)}
 
 # launches since the last reset, per kernel; a wrapper adds one exactly where
 # it launches its kernel
@@ -88,11 +98,16 @@ def _find_nvcc() -> str:
         f"{CSRC_DIR} at first use and need the CUDA toolkit")
 
 
-def _lib_path(source: Path) -> Path:
+def _flags(name: str) -> tuple:
+    return NVCC_FLAGS + KERNEL_FLAGS.get(name, ())
+
+
+def _lib_path(name: str) -> Path:
+    source = CSRC_DIR / KERNEL_SOURCES[name]
     digest = hashlib.sha1(
         source.read_bytes()
         + b"".join(h.read_bytes() for h in sorted(CSRC_DIR.glob("*.cuh")))
-        + " ".join(NVCC_FLAGS).encode()).hexdigest()[:12]
+        + " ".join(_flags(name)).encode()).hexdigest()[:12]
     return BUILD_DIR / f"lib{source.stem}_{digest}.so"
 
 
@@ -108,10 +123,10 @@ def build_kernels() -> dict:
     procs = {}
     for name in missing:
         src = CSRC_DIR / KERNEL_SOURCES[name]
-        out = _lib_path(src)
+        out = _lib_path(name)
         if not out.exists():
             tmp = out.with_suffix(f".{os.getpid()}.tmp")
-            cmd = [_find_nvcc(), *NVCC_FLAGS, "-o", str(tmp), str(src)]
+            cmd = [_find_nvcc(), *_flags(name), "-o", str(tmp), str(src)]
             procs[name] = (subprocess.Popen(
                 cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
                 text=True), tmp, out)
@@ -126,7 +141,7 @@ def build_kernels() -> dict:
     if failed:
         raise RuntimeError("kernel build failed\n" + "\n".join(failed))
     for name in missing:
-        lib = ctypes.CDLL(str(_lib_path(CSRC_DIR / KERNEL_SOURCES[name])))
+        lib = ctypes.CDLL(str(_lib_path(name)))
         _raise_on(_declare(name, lib)(), f"{name}: init")
         _libs[name] = lib
     return _libs
@@ -137,7 +152,14 @@ def _declare(name: str, lib):
     function (shared-memory opt-in or an early module load, called once
     after loading)."""
     ptr, i32, f64 = ctypes.c_void_p, ctypes.c_int, ctypes.c_double
-    if name == "preint_scan":
+    if name == "normal_eq_fused":
+        # (pointers, batch, nf, nfeat, c2, sqrt_aw, est_ext, f64, stream)
+        lib.avm_normal_eq_fused.argtypes = [ptr] + [i32] * 3 + [f64] * 2 + \
+            [i32] * 2 + [ptr]
+        lib.avm_normal_eq_warps.argtypes = [i32, i32]
+        fns = (lib.avm_normal_eq_fused, lib.avm_normal_eq_warps,
+               lib.avm_normal_eq_init)
+    elif name == "preint_scan":
         # (dts, accs, gyrs, acc0, gyr0, ba, bg, dp, dq, dv, J, P, dt_sum, S,
         #  batch, n, with_cov, f64, noise_var, dt_ref, stream)
         lib.avm_preint_scan.argtypes = [ptr] * 14 + [i32] * 4 + [ptr, f64,
@@ -196,6 +218,8 @@ LDL_NB = 16
 LOGDET_STAMPS = ("start", "load", "factor", "end")
 SCHUR_STAMPS = ("start", "load", "schur_product", "scale", "factor", "solve",
                 "epilogue")
+NE_STAMPS = ("start", "setup", "projection", "merge_prior", "imu_small",
+             "write")
 
 
 def _round_up(n: int, m: int) -> int:
@@ -594,3 +618,146 @@ def preint_scan(dts: Tensor, accs: Tensor, gyrs: Tensor, acc0: Tensor,
     dp, dq, dv, J, P, dt_sum, S = outs
     return pre.Preintegrated(dp, dq, dv, J, P, dt_sum, ba.to(dtype),
                              bg.to(dtype), S)
+
+
+# ----------------------------------------------------------------------------
+# The normal equations of an LM iteration: linearization and sums
+# ----------------------------------------------------------------------------
+
+
+class NormalEqFixed(NamedTuple):
+    """What `normal_eq_fused` reads that does not change over a solve: the
+    measurements, the prior and the gauge anchor's reference, each flattened
+    to [B, ...] contiguous in the state's type (`ins`, in the kernel's order,
+    None where an optional group is absent), the anchor frames (int64), and
+    H0 = J_sᵀJ_s of the prior, anchor and ZUPT rows, whose Jacobian does not
+    depend on the state."""
+
+    ins: tuple
+    anchor: Tensor
+    H0: Tensor
+
+
+def normal_eq_fixed(state, meas, cfg, anchor_ref=None):
+    """The solve-constant inputs of `normal_eq_fused` for `meas` (made once
+    per solve by `window.lm_solve`); None for CPU tensors, whose plain
+    version needs none."""
+    from anticipated_vins_mono_torch.ops import factors
+    from anticipated_vins_mono_torch.ops import window as win
+    if not state.p.is_cuda:
+        return None
+    dtype, dev = state.p.dtype, state.p.device
+    batch = tuple(state.p.shape[:-2])
+    B = math.prod(batch)
+    if anchor_ref is None:
+        anchor_ref = (state.p[..., 0, :], state.q[..., 0, :])
+
+    def flat(x, *shape):
+        if x is None:
+            return None
+        if x.device != dev:
+            raise ValueError(f"normal_eq_fused: an input on {x.device}, the "
+                             f"state on {dev}")
+        return x.to(dtype).expand(batch + shape).reshape(
+            (B,) + shape).contiguous()
+
+    NF, F, D, W = cfg.nf, cfg.max_feats, cfg.dim, cfg.window
+    pre, prior = meas.pre, meas.prior
+    S = pre.S if pre.S is not None else factors.sqrt_info_from_cov(pre.P)
+    lin = prior.lin
+    J_s = win._fixed_rows(state, meas, cfg, anchor_ref)
+    ins = (flat(pre.dp, W, 3), flat(pre.dq, W, 4), flat(pre.dv, W, 3),
+           flat(pre.J, W, 15, 15), flat(pre.dt_sum, W), flat(pre.ba, W, 3),
+           flat(pre.bg, W, 3), flat(S, W, 15, 15), flat(meas.pre_valid, W),
+           flat(meas.pts, F, NF, 3), flat(meas.mask, F, NF),
+           flat(meas.feat_valid, F), flat(meas.feat_w, F),
+           flat(meas.zupt_w, NF),
+           flat(prior.J0, D, D), flat(prior.r0, D), flat(lin.p, NF, 3),
+           flat(lin.q, NF, 4), flat(lin.v, NF, 3), flat(lin.ba, NF, 3),
+           flat(lin.bg, NF, 3), flat(lin.tic, 3), flat(lin.qic, 4),
+           flat(lin.td), flat(prior.weight),
+           flat(anchor_ref[0], 3), flat(anchor_ref[1], 4),
+           flat(meas.anchor_pin_rp))
+    anchor = meas.anchor.long().expand(batch + (F,)).reshape(B, F)\
+        .contiguous()
+    return NormalEqFixed(ins, anchor, flat(J_s.mT @ J_s, D, D))
+
+
+def normal_eq_fused(state, meas, cfg, anchor_ref=None,
+                    fixed: NormalEqFixed = None, stamps: Tensor = None):
+    """`window.normal_equations_fast` of a scenario batch: (H [...,D,D],
+    g [...,D], H_lp [...,F,D], h_ll [...,F], g_l [...,F]).
+
+    On CUDA tensors, float32 or float64: one launch, one block per scenario,
+    for a window without a relocalization frame and without td estimation
+    (`lm_solve` sends those to `window.linearize`); `fixed` is
+    `normal_eq_fixed`'s for these measurements, made here when None. On CPU
+    tensors: the plain version, `window.normal_equations_fast_plain`.
+    `stamps`: optional int64 tensor on the card that takes block 0's
+    clock64() at `NE_STAMPS`."""
+    from anticipated_vins_mono_torch.ops import window as win
+    if not state.p.is_cuda:
+        return win.normal_equations_fast_plain(state, meas, cfg, anchor_ref)
+    dtype, dev = state.p.dtype, state.p.device
+    if dtype not in (torch.float32, torch.float64):
+        raise TypeError(f"state: the kernel takes float32 or float64, got "
+                        f"{dtype}")
+    if meas.relo_pts is not None or cfg.estimate_td:
+        raise ValueError("normal_eq_fused: a relocalization frame or td "
+                         "estimation takes window.linearize")
+    NF, F = cfg.nf, cfg.max_feats
+    B = math.prod(state.p.shape[:-2])
+    lib = build_kernels()["normal_eq_fused"]
+    if lib.avm_normal_eq_warps(NF, int(dtype == torch.float64)) == 0:
+        raise ValueError(f"normal_eq_fused: {NF} frames do not fit a block's "
+                         f"shared memory")
+    if fixed is None:
+        fixed = normal_eq_fixed(state, meas, cfg, anchor_ref)
+    ptrs, outs, _held = _normal_eq_pointers(state, cfg, fixed)
+    ptrs.append(_stamps_ptr(stamps, NE_STAMPS, dev))
+    table = (ctypes.c_void_p * len(ptrs))(*ptrs)
+    with torch.cuda.device(dev):
+        err = lib.avm_normal_eq_fused(
+            ctypes.addressof(table), B, NF, F, float(cfg.cauchy_scale) ** 2,
+            float(cfg.anchor_weight) ** 0.5, int(cfg.estimate_extrinsic),
+            int(dtype == torch.float64),
+            torch.cuda.current_stream().cuda_stream)
+    _raise_on(err, "normal_eq_fused")
+    launch_counts["normal_eq_fused"] += 1
+    return outs
+
+
+def _normal_eq_pointers(state, cfg, fixed: NormalEqFixed):
+    """The kernel's table of pointers (state, `fixed`, outputs, in the order
+    of `csrc/normal_eq_fused.cu`'s `launch`), the outputs, made empty, and
+    the flattened state, which the caller holds until the launch."""
+    dtype, dev = state.p.dtype, state.p.device
+    NF, F, D = cfg.nf, cfg.max_feats, cfg.dim
+    batch = tuple(state.p.shape[:-2])
+    B = math.prod(batch)
+    st = []
+    for name, x, shape in (
+            ("p", state.p, (NF, 3)), ("q", state.q, (NF, 4)),
+            ("v", state.v, (NF, 3)), ("ba", state.ba, (NF, 3)),
+            ("bg", state.bg, (NF, 3)), ("tic", state.tic, (3,)),
+            ("qic", state.qic, (4,)), ("td", state.td, ()),
+            ("inv_depth", state.inv_depth, (F,))):
+        if x.dtype != dtype or x.device != dev:
+            raise ValueError(f"state.{name}: expected {dtype} on {dev}, got "
+                             f"{x.dtype} on {x.device}")
+        try:
+            x = x.expand(batch + shape)
+        except RuntimeError as e:
+            raise ValueError(f"state.{name}: {tuple(x.shape)} does not "
+                             f"broadcast to {batch + shape}") from e
+        st.append(x.reshape((B,) + shape).contiguous())
+    for x in fixed.ins + (fixed.H0, fixed.anchor):
+        if x is not None and (x.device != dev or x.shape[0] != B
+                              or not x.is_contiguous()):
+            raise ValueError("normal_eq_fused: `fixed` is not for this "
+                             "state's batch or device")
+    empty = lambda *shape: torch.empty(batch + shape, dtype=dtype, device=dev)
+    outs = (empty(D, D), empty(D), empty(F, D), empty(F), empty(F))
+    ptrs = [0 if x is None else x.data_ptr()
+            for x in (*st, *fixed.ins, fixed.H0, fixed.anchor, *outs)]
+    return ptrs, outs, st

@@ -665,7 +665,37 @@ def build_normal_equations(r_all, J_all, p_res, p_rows, p_rho,
 
 
 def normal_equations_fast(state: WindowState, meas: WindowMeasurements,
-                          cfg: WindowConfig, anchor_ref=None):
+                          cfg: WindowConfig, anchor_ref=None, fixed=None):
+    """Normal equations for the LM hot loop, (H, g, H_lp, h_ll, g_l).
+
+    On CUDA tensors (float32 or float64) one launch of the hand-written
+    kernel `hopper_kernels.normal_eq_fused`, which linearizes every factor
+    in registers; `fixed` is `hopper_kernels.normal_eq_fixed`'s for these
+    measurements (what does not change over a solve), made per call when
+    None. On CPU tensors the plain version, `normal_equations_fast_plain`.
+    Without a relocalization frame or td estimation: `lm_solve` sends those
+    to `linearize`.
+    """
+    from anticipated_vins_mono_torch.ops.hopper_kernels import normal_eq_fused
+    return normal_eq_fused(state, meas, cfg, anchor_ref, fixed)
+
+
+def _fixed_rows(state: WindowState, meas: WindowMeasurements,
+                cfg: WindowConfig, anchor_ref) -> Tensor:
+    """Jacobian rows [...,Ns,D] of the prior, gauge anchor and ZUPT groups:
+    none depends on the state, so JᵀJ of them is constant over a solve."""
+    batch = state.p.shape[:-2]
+    _, pr_rows = _prior_rows(state, meas, cfg)
+    _, a_rows = _anchor_rows(state, anchor_ref, cfg, meas.prior.weight,
+                             pin_rp=meas.anchor_pin_rp)
+    rows = [pr_rows.expand(batch + (cfg.dim, cfg.dim)), a_rows]
+    if meas.zupt_w is not None:
+        rows.append(_zupt_rows(state, meas, cfg)[1])
+    return torch.cat(rows, dim=-2)
+
+
+def normal_equations_fast_plain(state: WindowState, meas: WindowMeasurements,
+                                cfg: WindowConfig, anchor_ref=None):
     """Blockwise normal equations for the LM hot loop.
 
     `linearize` materializes dense projection rows [F,NF,2,D]; here H's
@@ -674,7 +704,8 @@ def normal_equations_fast(state: WindowState, meas: WindowMeasurements,
     of a row whose only nonzero blocks are (anchor, frame, ext, td) expands
     into block-pair terms) at a fraction of the memory traffic. The small
     row groups (IMU, prior, anchor, ZUPT) stay dense. Used when no relo
-    frame is attached.
+    frame is attached. The plain version of `hopper_kernels.normal_eq_fused`
+    and the path of CPU tensors.
     """
     F, NF, D = cfg.max_feats, cfg.nf, cfg.dim
     dtype, dev = state.p.dtype, state.p.device
@@ -800,8 +831,14 @@ def lm_solve(state: WindowState, meas: WindowMeasurements, cfg: WindowConfig,
     λ, cost and the accept/reject decision are per scenario; nothing inside
     the loop synchronises with the host. With `cfg.fused_schur` the linear
     solve of every iteration is ONE launch of the fused Schur kernel over the
-    whole batch (float32 only). `device` is where the solve runs: the inputs
-    are moved there, and a CUDA device that is not present raises.
+    whole batch (float32 only). On a CUDA device the normal equations of
+    every iteration are one launch of `hopper_kernels.normal_eq_fused`, whose
+    solve-constant inputs are made once before the loop; a window with a
+    relocalization frame, or a configuration that estimates td (no
+    configuration of the main paths does, so the kernel has no td column),
+    takes the dense rows of `linearize` instead, on any device. `device` is
+    where the solve runs: the inputs are moved there, and a CUDA device that
+    is not present raises.
     Returns (state, diagnostics dict of per-scenario tensors).
     """
     device = torch.device(device)
@@ -817,11 +854,17 @@ def _lm_solve(state, meas, cfg):
     dtype, dev = state.p.dtype, state.p.device
     D, F = cfg.dim, cfg.max_feats
 
+    dense = meas.relo_pts is not None or cfg.estimate_td
+    if not dense:
+        from anticipated_vins_mono_torch.ops.hopper_kernels import \
+            normal_eq_fixed
+        fixed = normal_eq_fixed(state, meas, cfg, anchor_ref)
+
     def body(st, lam, cost):
         with span("lm.normal_equations"):
-            if meas.relo_pts is None:
+            if not dense:
                 H, g, H_lp, h_ll, g_l = normal_equations_fast(
-                    st, meas, cfg, anchor_ref)
+                    st, meas, cfg, anchor_ref, fixed)
             else:
                 r_all, J_all, p_res, p_rows, p_rho, _ = linearize(
                     st, meas, cfg, anchor_ref)

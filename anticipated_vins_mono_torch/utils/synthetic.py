@@ -388,6 +388,63 @@ def batched(tree, B: int):
     return tree_map(lambda x: x[None].expand((B,) + x.shape).contiguous(), tree)
 
 
+def window_batch(cfg: WindowConfig, B: int, seed: int = 0,
+                 prior_weight: float = 1.0, zupt: bool = True,
+                 pin_rp: Optional[float] = 0.5, feat_w: bool = True,
+                 dtype=torch.float64, device="cuda"):
+    """B distinct scenarios of one window for holding the normal equations'
+    kernel against its plain version: `make_window_problem(cfg, seed)` at its
+    perturbed start, each scenario's state moved by its own noise; a dense
+    prior (random J0 and r0, linearized near the state) of weight
+    `prior_weight`; ZUPT weights, a roll/pitch pin and feature weights where
+    asked; one IMU pair invalid in odd scenarios; the last two landmark slots
+    empty; slot 0 seen in every frame and anchored in the last. Returns
+    (state, meas), every leaf [B, ...]."""
+    rng = np.random.default_rng(seed)
+    prob = make_window_problem(cfg, seed=seed, pixel_noise=0.5, perturb=1.0,
+                               bias_scale=1.0, device="cpu")
+    NF, F, D, W = cfg.nf, cfg.max_feats, cfg.dim, cfg.window
+    noise = lambda *shape: torch.from_numpy(rng.normal(size=(B,) + shape))
+    st = batched(prob.init, B)
+    st = st._replace(
+        p=st.p + 0.02 * noise(NF, 3),
+        q=lie.quat_normalize(st.q + 0.01 * noise(NF, 4)),
+        v=st.v + 0.02 * noise(NF, 3), ba=st.ba + 0.01 * noise(NF, 3),
+        bg=st.bg + 0.002 * noise(NF, 3), tic=st.tic + 0.01 * noise(3),
+        qic=lie.quat_normalize(st.qic + 0.01 * noise(4)),
+        td=st.td + 0.001 * noise(),
+        inv_depth=st.inv_depth * (1.0 + 0.05 * noise(F)))
+    ms = batched(prob.meas, B)
+    pre_valid = ms.pre_valid.clone()
+    pre_valid[1::2, W // 2] = 0.0
+    pts, mask, fv = ms.pts.clone(), ms.mask.clone(), ms.feat_valid.clone()
+    anchor = ms.anchor.long().clone()
+    pts[:, F - 2:] = 0.0
+    mask[:, F - 2:] = 0.0
+    fv[:, F - 2:] = 0.0
+    mask[:, 0] = 1.0
+    fv[:, 0] = 1.0
+    anchor[:, 0] = NF - 1
+    lin = st._replace(p=st.p + 0.01 * noise(NF, 3),
+                      q=lie.quat_normalize(st.q + 0.005 * noise(NF, 4)),
+                      v=st.v + 0.01 * noise(NF, 3),
+                      tic=st.tic + 0.005 * noise(3))
+    prior = PriorFactor(J0=0.3 * noise(D, D), r0=0.1 * noise(D), lin=lin,
+                        weight=torch.full((B,), float(prior_weight),
+                                          dtype=torch.float64))
+    ms = ms._replace(
+        pre_valid=pre_valid, pts=pts, mask=mask, feat_valid=fv, anchor=anchor,
+        prior=prior,
+        zupt_w=torch.from_numpy(rng.uniform(0, 3, (B, NF))) if zupt else None,
+        anchor_pin_rp=None if pin_rp is None else torch.full(
+            (B,), float(pin_rp), dtype=torch.float64),
+        feat_w=torch.from_numpy(rng.uniform(0.5, 1.5, (B, F))) if feat_w
+        else None)
+    cast = lambda x: x.to(device=device, dtype=dtype) \
+        if x.is_floating_point() else x.to(device)
+    return tree_map(cast, st), tree_map(cast, ms)
+
+
 def selector_inputs(prob: WindowProblem, cfg: WindowConfig, probs_seed: int = 1):
     """The tensor arguments of `feature_selector.device_select` for the newest
     frame of a window problem, with no tracker in front: its state, one IMU

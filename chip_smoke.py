@@ -54,7 +54,8 @@ the analytic trajectory plus a full-width checkpoint round trip, and
 `utils/calibration` from 8 rendered chessboard views.
 
 It builds the CUDA kernels from `anticipated_vins_mono_torch/csrc/` (the
-two that replace Pallas kernels and the IMU preintegration's scan), holds
+two that replace Pallas kernels, the IMU preintegration's scan and the LM
+iteration's normal equations), holds
 each against its plain PyTorch version on the card (the logdet kernel
 through both of its loaders), replays each from a captured CUDA graph, reads
 their phase split from the kernels' clock stamps, shows that each main path
@@ -421,13 +422,18 @@ def record_called_shapes(hk):
             accs[..., 0, 0].numel(), accs.shape[-2],
             str(accs.dtype).split(".")[-1],
             int(rest[6] if len(rest) > 6 else True)),
+        # (scenarios, window, landmark slots, type)
+        "normal_eq_fused": lambda state, meas, cfg, *_: (
+            state.p[..., 0, 0].numel(), cfg.window, cfg.max_feats,
+            str(state.p.dtype).split(".")[-1]),
     }
     saved = {name: getattr(hk, name) for name in shape_of}
     for name, shape in shape_of.items():
         CALLED_SHAPES[name] = set()
 
         def recorded(*args, _fn=saved[name], _name=name, _shape=shape, **kw):
-            if args[0].is_cuda:
+            lead = args[0].p if _name == "normal_eq_fused" else args[0]
+            if lead.is_cuda:
                 CALLED_SHAPES[_name].add(_shape(*args))
             return _fn(*args, **kw)
         setattr(hk, name, recorded)
@@ -456,15 +462,19 @@ def check_called_shapes(hk):
             hk, schur_batch(B, D, F))})
     preint = [dict(zip(("B", "N", "dtype", "with_cov"), key), **preint_agrees(
         hk, *key)) for key in sorted(CALLED_SHAPES["preint_scan"])]
-    return {"plain_loader": plain, "fused_loader": fused}, schur, preint
+    ne = [dict(zip(("B", "window", "F", "dtype"), key), **ne_agrees(hk, *key))
+          for key in sorted(CALLED_SHAPES["normal_eq_fused"])]
+    return {"plain_loader": plain, "fused_loader": fused}, schur, preint, ne
 
 
-# the preintegration kernel's launches are held apart from the other two's:
-# it runs once per `preintegrate` call on the card, wherever a path
-# preintegrates (the `vio` phase holds its count too)
+# the launches of the preintegration kernel and of the normal equations'
+# kernel are held apart from the other two's: they run wherever a path
+# preintegrates or solves on the card, in both types (the `vio` phase holds
+# their counts too)
 def solver_launches(counts: dict) -> dict:
-    """The selector's and the solver's kernels' launches of `counts`."""
-    return {k: n for k, n in counts.items() if k != "preint_scan"}
+    """The selector's and the Schur solve's kernels' launches of `counts`."""
+    return {k: n for k, n in counts.items()
+            if k not in ("preint_scan", "normal_eq_fused")}
 
 
 def preint_work(B: int, N: int, real: int, with_cov: bool = True):
@@ -533,6 +543,67 @@ def preint_agrees(hk, B: int, N: int, dtype: str, with_cov: int = 1,
                 f"{ek} vs the loop's {ep} (relative to the float64 loop)")
     return {"max_rel_err_vs_f64_loop": kernel_err,
             "plain_max_rel_err_vs_f64_loop": plain_err}
+
+
+def ne_work(B: int, window: int = 10, F: int = 128):
+    """(bytes, flop) of `normal_eq_fused` on B scenarios, float32: every
+    input read once (the prior's J0 twice: its product with the state's
+    offset and its transpose's with the residual; H0 once), H, g, H_lp, h_ll,
+    g_l written once; the flop of the dual-number passes counted from the
+    residual's operations (per projection factor ~3,100: four rotations and
+    the divisions, carried with 7, 6 and 6 tangents; per IMU pair ~16,000),
+    the sums (a factor's 2 x 20 columns into 105 + 105 entries, an IMU
+    pair's 30 x 31 products of 15 rows and its whitening, 15 x 15 x 31), the
+    prior's two D x D products."""
+    NF, D = window + 1, 15 * (window + 1) + 13
+    W = window
+    ins = (NF * 16 + 1 + F) + W * (3 + 4 + 3 + 225 + 1 + 3 + 3 + 225 + 1) \
+        + F * NF * 4 + F * 3 + NF + D * D * 3 + D + NF * 16 + 2 + 8
+    outs = D * D + D + F * D + 2 * F
+    proj = F * (NF - 1) * (3100 + 2 * 2 * (105 + 105))
+    imu = W * (16000 + 2 * 15 * 15 * 31 + 2 * 15 * 495)
+    prior = 2 * 2 * D * D
+    return B * (ins + outs) * 4, B * (proj + imu + prior)
+
+
+def ne_agrees(hk, B: int, window: int, F: int, dtype: str) -> dict:
+    """The normal equations' kernel against its plain version
+    (`window.normal_equations_fast_plain`) on the card, on B seeded
+    scenarios of `synthetic.window_batch` (a prior, ZUPT, a roll/pitch pin,
+    feature weights, empty slots, a landmark anchored in the last frame).
+    float64: every output within 1e-10 of its largest entry. float32: each
+    output's largest distance to the float64 plain version at most 4 times
+    the float32 plain version's, plus 8 ulps of its size (the same sums in
+    another order). Returns the largest distances, kernel and plain,
+    relative to each output's size."""
+    from anticipated_vins_mono_torch.ops import window as win
+    from anticipated_vins_mono_torch.utils.synthetic import window_batch
+    from anticipated_vins_mono_torch.utils.tree import tree_map
+    cfg = win.WindowConfig(window=window, max_feats=F)
+    st, ms = window_batch(cfg, B, seed=B + F, device="cuda")
+    ref64 = win.normal_equations_fast_plain(st, ms, cfg)
+    if dtype == "float32":
+        cast = lambda x: x.float() if x.is_floating_point() else x
+        st, ms = tree_map(cast, st), tree_map(cast, ms)
+    got = hk.normal_eq_fused(st, ms, cfg)
+    ref = win.normal_equations_fast_plain(st, ms, cfg)
+    torch.cuda.synchronize()
+    eps = torch.finfo(torch.float32).eps
+    kernel_err, plain_err = 0.0, 0.0
+    for name, r64, k, r in zip(("H", "g", "H_lp", "h_ll", "g_l"), ref64, got,
+                               ref):
+        scale = max(float(r64.abs().max()), 1e-300)
+        ek = float((k.double() - r64).abs().max()) / scale
+        ep = float((r.double() - r64).abs().max()) / scale
+        kernel_err, plain_err = max(kernel_err, ek), max(plain_err, ep)
+        ok = ek <= 1e-10 if dtype == "float64" else ek <= 4 * ep + 8 * eps
+        if not ok or k.shape != r64.shape or not torch.isfinite(k).all():
+            raise AssertionError(
+                f"normal_eq_fused disagrees at {(B, window, F, dtype)}, "
+                f"{name}: {ek} vs the plain version's {ep} (relative to the "
+                f"float64 plain version)")
+    return {"max_rel_err_vs_f64_plain": kernel_err,
+            "plain_max_rel_err_vs_f64_plain": plain_err}
 
 
 # ----------------------------------------------------------------------------
@@ -723,8 +794,71 @@ def phase_kernels(hk):
     schur["curve_batches"] = schur_curve_batches(hk)
     logdet["capstone_batch"] = logdet_capstone_batch(hk)
     preint = preint_kernel(hk)
-    emit({"phase": "kernel_check", "checked": [logdet, schur, preint]})
-    return logdet, schur, preint
+    ne = ne_kernel(hk)
+    emit({"phase": "kernel_check", "checked": [logdet, schur, preint, ne]})
+    return logdet, schur, preint, ne
+
+
+def ne_kernel(hk):
+    """The normal equations' kernel at the flagship window (D = 178, F =
+    128) against its plain version at `ne_agrees`' tolerances, B = 1 and 64,
+    both types; its bits the same on a second launch and from a replayed
+    CUDA graph; timed graph-replayed at B = 1, 64 and 512 (float32, and
+    float64 at 64) beside its bound, the plain version's time and one eager
+    call's (the wrapper's host time included), with block 0's phase split."""
+    from anticipated_vins_mono_torch.ops import window as win
+    from anticipated_vins_mono_torch.utils.synthetic import window_batch
+    from anticipated_vins_mono_torch.utils.tree import tree_map
+    checked = [dict(zip(("B", "window", "F", "dtype"), key),
+                    **ne_agrees(hk, *key))
+               for key in ((1, 10, 128, "float32"), (64, 10, 128, "float32"),
+                           (1, 10, 128, "float64"), (64, 10, 128, "float64"))]
+    cfg = win.WindowConfig(window=10, max_feats=128)
+    cast = lambda x: x.float() if x.is_floating_point() else x
+    by_batch = {}
+    for B in (1, 64, 512):
+        st, ms = window_batch(cfg, B, seed=B, device="cuda")
+        fixed = hk.normal_eq_fixed(st, ms, cfg)
+        f64_ms = kernel_ms(lambda: hk.normal_eq_fused(st, ms, cfg,
+                                                      fixed=fixed)) \
+            if B == 64 else None
+        st, ms = tree_map(cast, st), tree_map(cast, ms)
+        fixed = hk.normal_eq_fixed(st, ms, cfg)
+        run = lambda: hk.normal_eq_fused(st, ms, cfg, fixed=fixed)
+        eager = run()
+        if not all(torch.equal(a, b) for a, b in zip(run(), eager)):
+            raise AssertionError("normal_eq_fused: two launches differ")
+        if not all(torch.equal(a, b)
+                   for a, b in zip(graph_replay(run), eager)):
+            raise AssertionError("normal_eq_fused: graph replay differs "
+                                 "from eager")
+        ms_ = kernel_ms(run, 20)
+        stamps = torch.zeros(len(hk.NE_STAMPS), dtype=torch.int64,
+                             device="cuda")
+        hk.normal_eq_fused(st, ms, cfg, fixed=fixed, stamps=stamps)
+        b_ms, b_by = bound(*ne_work(B))
+        by_batch[f"b{B}"] = {
+            "ms": ms_, "f64_ms": f64_ms, "eager_ms": cuda_ms(run, 10, 2),
+            "plain_ms": cuda_ms(lambda: win.normal_equations_fast_plain(
+                st, ms, cfg), 2, 1),
+            "bound_ms": b_ms, "bound_by": b_by,
+            "phases": phase_split(stamps, hk.NE_STAMPS, ms_)}
+    return {
+        "name": "normal_eq_fused", "route": "cuda",
+        "source": "anticipated_vins_mono_torch/csrc/normal_eq_fused.cu",
+        "replaces": "no TPU kernel: XLA's linearization in "
+                    "anticipated_vins_mono_tpu/ops/window.py "
+                    "(normal_equations_fast)",
+        "shape": {"B": 64, "window": 10, "F": 128, "dtype": "float32"},
+        "tolerance": "f32: 4x the plain version's distance to the f64 plain "
+                     "version + 8 ulps; f64: 1e-10 of each output's size",
+        "checked": checked,
+        "max_rel_err": max(c["max_rel_err_vs_f64_plain"] for c in checked
+                           if c["dtype"] == "float32"),
+        "ms": by_batch["b64"]["ms"], "by_batch": by_batch,
+        "bound_note": "a block per scenario and the dual numbers' dependent "
+                      "chains, not bytes or flop",
+    }
 
 
 def preint_kernel(hk):
@@ -960,6 +1094,7 @@ def drive_vio(hk, pr, traj, dtype, n_steps=None):
             f"weight {float(st.prior.weight)}, {prior_rows} prior rows")
     t_est = np.array([fm.t for fm in frames[first:last]])
     return {"frames": T, "counts": counts, "prior_rows": prior_rows,
+            "iters": pr.wcfg.iters,
             "keyframes": int(out["keyframe"].sum()),
             "keyframe_fraction": float(out["keyframe"].double().mean()),
             "ate_rmse_m": ate_rmse(t_est, p, traj.t, traj.p),
@@ -973,10 +1108,12 @@ def drive_vio(hk, pr, traj, dtype, n_steps=None):
 
 def check_vio_counts(tag, run, per_frame):
     """Exact launches: `per_frame` of the selector's and solver's kernels,
-    and the preintegration kernel once a frame (the measurements) and once
-    more a keyframe (`_margin_old`'s)."""
+    the preintegration kernel once a frame (the measurements) and once more
+    a keyframe (`_margin_old`'s), and the normal equations' kernel once an
+    LM iteration (both types)."""
     want = {name: n * run["frames"] for name, n in per_frame.items()}
     want["preint_scan"] = run["frames"] + run["keyframes"]
+    want["normal_eq_fused"] = run["iters"] * run["frames"]
     if run["counts"] != want:
         raise AssertionError(f"{tag}: launched {run['counts']}, wanted {want}")
 
@@ -2465,7 +2602,7 @@ def main() -> int:
     emit({"phase": "device", "kind": kind, "nvidia_smi": smi,
           "torch": torch.__version__, "cuda": torch.version.cuda})
 
-    logdet_k, schur_k, preint_k = phase_kernels(hk)
+    logdet_k, schur_k, preint_k, ne_k = phase_kernels(hk)
     restore_wrappers = record_called_shapes(hk)
 
     # ------------------------------------------------------------ main path
@@ -2678,8 +2815,9 @@ def main() -> int:
     # run the Schur kernel only
     runs_on = {"logdet_psd_batched": set(launches) - {"loop", "curve"},
                "schur_solve_fused": set(launches),
-               "preint_scan": {"vio"}}
-    for k in (logdet_k, schur_k, preint_k):
+               "preint_scan": {"vio"},
+               "normal_eq_fused": set(launches)}
+    for k in (logdet_k, schur_k, preint_k, ne_k):
         k["launches_by_path"] = {path: c[k["name"]]
                                  for path, c in launches.items()}
         if min(k["launches_by_path"][p] for p in runs_on[k["name"]]) < 1:
@@ -2687,7 +2825,8 @@ def main() -> int:
         k["launches"] = sum(k["launches_by_path"].values())
     restore_wrappers()
     (logdet_k["called_shapes"], schur_k["called_shapes"],
-     preint_k["called_shapes"]) = check_called_shapes(hk)
+     preint_k["called_shapes"], ne_k["called_shapes"]) = \
+        check_called_shapes(hk)
     logdet_k["max_abs_err"] = max(
         [logdet_k["max_abs_err"], logdet_k["capstone_batch"]["max_abs_err"]]
         + [c["max_abs_err"] for loader in logdet_k["called_shapes"].values()
@@ -2700,8 +2839,12 @@ def main() -> int:
         [preint_k["max_rel_err"]]
         + [c["max_rel_err_vs_f64_loop"] for c in preint_k["called_shapes"]
            if c["dtype"] == "float32"])
+    ne_k["max_rel_err"] = max(
+        [ne_k["max_rel_err"]]
+        + [c["max_rel_err_vs_f64_plain"] for c in ne_k["called_shapes"]
+           if c["dtype"] == "float32"])
 
-    emit({"kernels": [logdet_k, schur_k, preint_k]})
+    emit({"kernels": [logdet_k, schur_k, preint_k, ne_k]})
     emit({"phase": "done", "seconds": round(time.perf_counter() - t_start, 1)})
     print(smi, flush=True)
     emit({"ok": True, "device": {"platform": "gpu", "kind": kind,
