@@ -17,22 +17,23 @@ PyTorch, in the kernel's order, for the tests.
 Two kernels replace no TPU kernel. `preint_scan` runs the IMU
 preintegration's whole midpoint scan of a call, and its Cholesky tail, in
 one launch (`csrc/preint_scan.cu`), float32 or float64, where the JAX
-package has a `lax.scan`; its plain version is the port's loop,
-`preintegration.preintegrate_plain`. `normal_eq_fused` linearizes every
-projection and IMU factor of a window and sums the LM iteration's normal
-equations in one launch (`csrc/normal_eq_fused.cu`), float32 or float64,
-where the JAX package has XLA's linearization; its plain version is
-`window.normal_equations_fast_plain`.
+package has a `lax.scan`. `normal_eq_fused` linearizes every projection and
+IMU factor of a window and sums the LM iteration's normal equations in one
+launch (`csrc/normal_eq_fused.cu`), float32 or float64, where the JAX
+package has XLA's linearization. Both are launchers of flat `[B, ...]`
+tensors and take CUDA tensors only: the op that owns the types packs them
+and chooses the route, and holds the plain version
+(`preintegration.preintegrate`, `window._normal_eq_route`).
 
 The CUDA sources are compiled with `nvcc` for `sm_90a` at first use, one
 compiler process per source started together, into `build/hopper_kernels/`
 beside the package, and loaded with `ctypes`. Nothing is compiled when the
 module is imported.
 
-Each wrapper takes its plain PyTorch version (`*_plain`, the same arithmetic
-in the same order) only for tensors that lie on the CPU. For a CUDA
-tensor it launches the kernel or raises; there is no fallback. Each launch
-adds one to `launch_counts[name]`.
+The logdet and Schur wrappers take their plain PyTorch version (`*_plain`,
+the same arithmetic in the same order) only for tensors that lie on the
+CPU. For a CUDA tensor every entry point launches its kernel or raises;
+there is no fallback. Each launch adds one to `launch_counts[name]`.
 """
 
 from __future__ import annotations
@@ -44,7 +45,6 @@ import os
 import shutil
 import subprocess
 from pathlib import Path
-from typing import NamedTuple
 
 import torch
 
@@ -559,205 +559,145 @@ def schur_solve_fused(H: Tensor, g: Tensor, H_lp: Tensor, h_ll: Tensor,
 
 
 # ----------------------------------------------------------------------------
-# IMU preintegration: the midpoint scan and its whitening tail
+# The launchers of the two kernels with no TPU counterpart
 # ----------------------------------------------------------------------------
+
+
+def flat_batch(x: Tensor, batch: tuple, shape: tuple, dtype=None) -> Tensor:
+    """x broadcast to batch + shape as a contiguous [B, *shape] (in `dtype`
+    where given): the launchers' layout. None stays None."""
+    if x is None:
+        return None
+    if dtype is not None:
+        x = x.to(dtype)
+    flat = (math.prod(batch),) + shape
+    if x.shape != flat:       # no dispatch for what is already in the layout
+        x = x.expand(batch + shape).reshape(flat)
+    return x.contiguous()
+
+
+def unflat_batch(outs, batch: tuple) -> tuple:
+    """A launcher's [B, ...] outputs in the caller's batch shape."""
+    return tuple(x if x is None or x.shape[:1] == batch
+                 else x.reshape(batch + x.shape[1:]) for x in outs)
+
+
+def _check_inputs(kernel: str, inputs: dict, shapes: dict,
+                  optional: tuple = ()) -> tuple:
+    """Checks the inputs of `kernel` named in `shapes`: each a contiguous
+    tensor of shape [B, *shapes[name]] on the CUDA device of the first, of
+    its type (float32 or float64; `anchor` int64); those in `optional` may
+    be None. Returns (B, type, device)."""
+    first = inputs.get(next(iter(shapes)))
+    if first is None or not first.is_cuda:
+        raise ValueError(f"{kernel}: the kernel takes CUDA tensors")
+    B, dtype, dev = first.shape[:1].numel(), first.dtype, first.device
+    if dtype not in (torch.float32, torch.float64):
+        raise TypeError(f"{kernel}: the kernel takes float32 or float64, got "
+                        f"{dtype}")
+    for name, shape in shapes.items():
+        x = inputs.get(name)
+        want = torch.int64 if name == "anchor" else dtype
+        if x is None and name in optional:
+            continue
+        if (x is None or x.dtype != want or x.device != dev
+                or x.shape != (B, *shape) or not x.is_contiguous()):
+            raise ValueError(
+                f"{kernel}: {name}: expected a contiguous {want} "
+                f"{(B, *shape)} on {dev}, got " + ("nothing" if x is None else
+                f"{x.dtype} {tuple(x.shape)} on {x.device}"))
+    return B, dtype, dev
 
 
 def preint_scan(dts: Tensor, accs: Tensor, gyrs: Tensor, acc0: Tensor,
-                gyr0: Tensor, ba: Tensor, bg: Tensor, noise,
+                gyr0: Tensor, ba: Tensor, bg: Tensor, noise_var, dt_ref: float,
                 with_cov: bool = True):
-    """`preintegration.preintegrate` of a batch of padded IMU pairs.
-
-    dts [...,N], accs and gyrs [...,N,3], acc0, gyr0, ba and bg [...,3]
-    (broadcast to the batch), `noise` an `ImuNoise` (its `noise_cov18` is
-    read as a diagonal) → `Preintegrated`, in
-    the type of `accs` (float32 or float64). On CUDA tensors: one launch, one
-    block per pair, whatever the batch's shape, the scan stopped after each
-    pair's last row whose dt is not 0, the covariance's Cholesky inverse in
-    the same launch; nothing is read back to the host. On CPU tensors: the
-    plain version, `preintegration.preintegrate_plain`."""
-    from anticipated_vins_mono_torch.ops import preintegration as pre
-    if not accs.is_cuda:
-        return pre.preintegrate_plain(dts, accs, gyrs, acc0, gyr0, ba, bg,
-                                      noise, with_cov)
-    dtype, dev = accs.dtype, accs.device
-    if dtype not in (torch.float32, torch.float64):
-        raise TypeError(f"accs: the kernel takes float32 or float64, got "
-                        f"{dtype}")
-    if accs.dim() < 2 or accs.shape[-1] != 3:
-        raise ValueError(f"accs: expected [...,N,3], got {tuple(accs.shape)}")
-    batch, n = tuple(accs.shape[:-2]), accs.shape[-2]
-    for name, x, shape in (("gyrs", gyrs, accs.shape),
-                           ("dts", dts, accs.shape[:-1])):
-        if tuple(x.shape) != tuple(shape) or x.device != dev:
-            raise ValueError(f"{name}: expected {tuple(shape)} on {dev}, got "
-                             f"{tuple(x.shape)} on {x.device}")
-    for name, x in (("acc0", acc0), ("gyr0", gyr0), ("ba", ba), ("bg", bg)):
-        if x.device != dev:
-            raise ValueError(f"{name}: on {x.device}, expected {dev}")
-    ins = [dts.to(dtype).contiguous(), accs.contiguous(),
-           gyrs.to(dtype).contiguous()] + [
-        x.to(dtype).expand(batch + (3,)).contiguous()
-        for x in (acc0, gyr0, ba, bg)]
-    # Q's diagonal, as the loop builds Q, passed by value
-    var = (ctypes.c_double * 18)(
-        *noise.noise_cov18(torch.float64).diagonal().tolist())
-    empty = lambda *shape: torch.empty(batch + shape, dtype=dtype, device=dev)
-    outs = [empty(3), empty(4), empty(3), empty(15, 15), empty(15, 15),
-            empty(), empty(15, 15) if with_cov else None]
+    """One launch of the preintegration kernel on B padded IMU pairs, one
+    block each: dts [B,N], accs and gyrs [B,N,3], acc0, gyr0, ba and bg
+    [B,3], contiguous CUDA tensors of one type, float32 or float64;
+    `noise_var` the 18 variances of Q's diagonal, `dt_ref` the sample period
+    they assume → (dp [B,3], dq [B,4], dv [B,3], J [B,15,15], P [B,15,15],
+    dt_sum [B], S [B,15,15] or None without the covariance). The scan stops
+    after each pair's last row whose dt is not 0; the covariance's Cholesky
+    inverse is taken in the same launch; nothing is read back to the host."""
+    n = accs.shape[1] if accs.dim() == 3 else -1
+    B, dtype, dev = _check_inputs(
+        "preint_scan", dict(dts=dts, accs=accs, gyrs=gyrs, acc0=acc0,
+                            gyr0=gyr0, ba=ba, bg=bg),
+        dict(dts=(n,), accs=(n, 3), gyrs=(n, 3), acc0=(3,), gyr0=(3,),
+             ba=(3,), bg=(3,)))
+    if len(noise_var) != 18:
+        raise ValueError(f"preint_scan: {len(noise_var)} variances, not 18")
+    var = (ctypes.c_double * 18)(*noise_var)          # passed by value
+    empty = lambda *shape: torch.empty((B,) + shape, dtype=dtype, device=dev)
+    outs = (empty(3), empty(4), empty(3), empty(15, 15), empty(15, 15),
+            empty(), empty(15, 15) if with_cov else None)
     lib = build_kernels()["preint_scan"]
     with torch.cuda.device(dev):
         err = lib.avm_preint_scan(
-            *(x.data_ptr() for x in ins),
+            *(x.data_ptr() for x in (dts, accs, gyrs, acc0, gyr0, ba, bg)),
             *(0 if x is None else x.data_ptr() for x in outs),
-            math.prod(batch), n, int(with_cov), int(dtype == torch.float64),
-            ctypes.addressof(var), noise.dt_ref,
+            B, n, int(with_cov), int(dtype == torch.float64),
+            ctypes.addressof(var), float(dt_ref),
             torch.cuda.current_stream().cuda_stream)
     _raise_on(err, "preint_scan")
     launch_counts["preint_scan"] += 1
-    dp, dq, dv, J, P, dt_sum, S = outs
-    return pre.Preintegrated(dp, dq, dv, J, P, dt_sum, ba.to(dtype),
-                             bg.to(dtype), S)
-
-
-# ----------------------------------------------------------------------------
-# The normal equations of an LM iteration: linearization and sums
-# ----------------------------------------------------------------------------
-
-
-class NormalEqFixed(NamedTuple):
-    """What `normal_eq_fused` reads that does not change over a solve: the
-    measurements, the prior and the gauge anchor's reference, each flattened
-    to [B, ...] contiguous in the state's type (`ins`, in the kernel's order,
-    None where an optional group is absent), the anchor frames (int64), and
-    H0 = J_sᵀJ_s of the prior, anchor and ZUPT rows, whose Jacobian does not
-    depend on the state."""
-
-    ins: tuple
-    anchor: Tensor
-    H0: Tensor
-
-
-def normal_eq_fixed(state, meas, cfg, anchor_ref=None):
-    """The solve-constant inputs of `normal_eq_fused` for `meas` (made once
-    per solve by `window.lm_solve`); None for CPU tensors, whose plain
-    version needs none."""
-    from anticipated_vins_mono_torch.ops import factors
-    from anticipated_vins_mono_torch.ops import window as win
-    if not state.p.is_cuda:
-        return None
-    dtype, dev = state.p.dtype, state.p.device
-    batch = tuple(state.p.shape[:-2])
-    B = math.prod(batch)
-    if anchor_ref is None:
-        anchor_ref = (state.p[..., 0, :], state.q[..., 0, :])
-
-    def flat(x, *shape):
-        if x is None:
-            return None
-        if x.device != dev:
-            raise ValueError(f"normal_eq_fused: an input on {x.device}, the "
-                             f"state on {dev}")
-        return x.to(dtype).expand(batch + shape).reshape(
-            (B,) + shape).contiguous()
-
-    NF, F, D, W = cfg.nf, cfg.max_feats, cfg.dim, cfg.window
-    pre, prior = meas.pre, meas.prior
-    S = pre.S if pre.S is not None else factors.sqrt_info_from_cov(pre.P)
-    lin = prior.lin
-    J_s = win._fixed_rows(state, meas, cfg, anchor_ref)
-    ins = (flat(pre.dp, W, 3), flat(pre.dq, W, 4), flat(pre.dv, W, 3),
-           flat(pre.J, W, 15, 15), flat(pre.dt_sum, W), flat(pre.ba, W, 3),
-           flat(pre.bg, W, 3), flat(S, W, 15, 15), flat(meas.pre_valid, W),
-           flat(meas.pts, F, NF, 3), flat(meas.mask, F, NF),
-           flat(meas.feat_valid, F), flat(meas.feat_w, F),
-           flat(meas.zupt_w, NF),
-           flat(prior.J0, D, D), flat(prior.r0, D), flat(lin.p, NF, 3),
-           flat(lin.q, NF, 4), flat(lin.v, NF, 3), flat(lin.ba, NF, 3),
-           flat(lin.bg, NF, 3), flat(lin.tic, 3), flat(lin.qic, 4),
-           flat(lin.td), flat(prior.weight),
-           flat(anchor_ref[0], 3), flat(anchor_ref[1], 4),
-           flat(meas.anchor_pin_rp))
-    anchor = meas.anchor.long().expand(batch + (F,)).reshape(B, F)\
-        .contiguous()
-    return NormalEqFixed(ins, anchor, flat(J_s.mT @ J_s, D, D))
-
-
-def normal_eq_fused(state, meas, cfg, anchor_ref=None,
-                    fixed: NormalEqFixed = None, stamps: Tensor = None):
-    """`window.normal_equations_fast` of a scenario batch: (H [...,D,D],
-    g [...,D], H_lp [...,F,D], h_ll [...,F], g_l [...,F]).
-
-    On CUDA tensors, float32 or float64: one launch, one block per scenario,
-    for a window without a relocalization frame and without td estimation
-    (`lm_solve` sends those to `window.linearize`); `fixed` is
-    `normal_eq_fixed`'s for these measurements, made here when None. On CPU
-    tensors: the plain version, `window.normal_equations_fast_plain`.
-    `stamps`: optional int64 tensor on the card that takes block 0's
-    clock64() at `NE_STAMPS`."""
-    from anticipated_vins_mono_torch.ops import window as win
-    if not state.p.is_cuda:
-        return win.normal_equations_fast_plain(state, meas, cfg, anchor_ref)
-    dtype, dev = state.p.dtype, state.p.device
-    if dtype not in (torch.float32, torch.float64):
-        raise TypeError(f"state: the kernel takes float32 or float64, got "
-                        f"{dtype}")
-    if meas.relo_pts is not None or cfg.estimate_td:
-        raise ValueError("normal_eq_fused: a relocalization frame or td "
-                         "estimation takes window.linearize")
-    NF, F = cfg.nf, cfg.max_feats
-    B = math.prod(state.p.shape[:-2])
-    lib = build_kernels()["normal_eq_fused"]
-    if lib.avm_normal_eq_warps(NF, int(dtype == torch.float64)) == 0:
-        raise ValueError(f"normal_eq_fused: {NF} frames do not fit a block's "
-                         f"shared memory")
-    if fixed is None:
-        fixed = normal_eq_fixed(state, meas, cfg, anchor_ref)
-    ptrs, outs, _held = _normal_eq_pointers(state, cfg, fixed)
-    ptrs.append(_stamps_ptr(stamps, NE_STAMPS, dev))
-    table = (ctypes.c_void_p * len(ptrs))(*ptrs)
-    with torch.cuda.device(dev):
-        err = lib.avm_normal_eq_fused(
-            ctypes.addressof(table), B, NF, F, float(cfg.cauchy_scale) ** 2,
-            float(cfg.anchor_weight) ** 0.5, int(cfg.estimate_extrinsic),
-            int(dtype == torch.float64),
-            torch.cuda.current_stream().cuda_stream)
-    _raise_on(err, "normal_eq_fused")
-    launch_counts["normal_eq_fused"] += 1
     return outs
 
 
-def _normal_eq_pointers(state, cfg, fixed: NormalEqFixed):
-    """The kernel's table of pointers (state, `fixed`, outputs, in the order
-    of `csrc/normal_eq_fused.cu`'s `launch`), the outputs, made empty, and
-    the flattened state, which the caller holds until the launch."""
-    dtype, dev = state.p.dtype, state.p.device
-    NF, F, D = cfg.nf, cfg.max_feats, cfg.dim
-    batch = tuple(state.p.shape[:-2])
-    B = math.prod(batch)
-    st = []
-    for name, x, shape in (
-            ("p", state.p, (NF, 3)), ("q", state.q, (NF, 4)),
-            ("v", state.v, (NF, 3)), ("ba", state.ba, (NF, 3)),
-            ("bg", state.bg, (NF, 3)), ("tic", state.tic, (3,)),
-            ("qic", state.qic, (4,)), ("td", state.td, ()),
-            ("inv_depth", state.inv_depth, (F,))):
-        if x.dtype != dtype or x.device != dev:
-            raise ValueError(f"state.{name}: expected {dtype} on {dev}, got "
-                             f"{x.dtype} on {x.device}")
-        try:
-            x = x.expand(batch + shape)
-        except RuntimeError as e:
-            raise ValueError(f"state.{name}: {tuple(x.shape)} does not "
-                             f"broadcast to {batch + shape}") from e
-        st.append(x.reshape((B,) + shape).contiguous())
-    for x in fixed.ins + (fixed.H0, fixed.anchor):
-        if x is not None and (x.device != dev or x.shape[0] != B
-                              or not x.is_contiguous()):
-            raise ValueError("normal_eq_fused: `fixed` is not for this "
-                             "state's batch or device")
-    empty = lambda *shape: torch.empty(batch + shape, dtype=dtype, device=dev)
+def normal_eq_inputs(nf: int, nfeat: int) -> dict:
+    """The inputs of the normal equations' kernel by name, in the order of
+    `csrc/normal_eq_fused.cu`'s pointer table, each with its shape after the
+    batch, for NF = `nf` frames (W = NF - 1 pairs, D = 15·NF + 13) and F =
+    `nfeat` landmark slots (`Args` in the source says what each holds)."""
+    W, F, D = nf - 1, nfeat, 15 * nf + 13
+    pose = {"p": (nf, 3), "q": (nf, 4), "v": (nf, 3), "ba": (nf, 3),
+            "bg": (nf, 3), "tic": (3,), "qic": (4,), "td": ()}
+    return {**pose, "inv_depth": (F,),
+            "pre_dp": (W, 3), "pre_dq": (W, 4), "pre_dv": (W, 3),
+            "pre_J": (W, 15, 15), "pre_dt": (W,), "pre_ba": (W, 3),
+            "pre_bg": (W, 3), "pre_S": (W, 15, 15), "pre_valid": (W,),
+            "pts": (F, nf, 3), "mask": (F, nf), "feat_valid": (F,),
+            "feat_w": (F,), "zupt_w": (nf,), "J0": (D, D), "r0": (D,),
+            **{"lin_" + k: s for k, s in pose.items()}, "prior_w": (),
+            "p_ref": (3,), "q_ref": (4,), "pin_rp": (), "H0": (D, D),
+            "anchor": (F,)}
+
+
+# inputs the kernel takes as null: no feature weights (1), no ZUPT rows, no
+# roll/pitch scale (1)
+NE_OPTIONAL = ("feat_w", "zupt_w", "pin_rp")
+
+
+def normal_eq_fused(inputs: dict, c2: float, sqrt_aw: float, est_ext: bool,
+                    stamps: Tensor = None):
+    """One launch of the normal equations' kernel on B scenarios, one block
+    each: `inputs` the tensors `normal_eq_inputs` names, contiguous [B, ...]
+    CUDA tensors of one type, float32 or float64 (`anchor` int64); `c2` the
+    Cauchy scale squared, `sqrt_aw` the square root of the gauge anchor's
+    weight → (H [B,D,D], g [B,D], H_lp [B,F,D], h_ll [B,F], g_l [B,F]).
+    `stamps`: optional int64 tensor on the card that takes block 0's
+    clock64() at `NE_STAMPS`."""
+    nf, F = inputs["p"].shape[1], inputs["inv_depth"].shape[1]
+    shapes = normal_eq_inputs(nf, F)
+    B, dtype, dev = _check_inputs("normal_eq_fused", inputs, shapes,
+                                  NE_OPTIONAL)
+    f64 = int(dtype == torch.float64)
+    lib = build_kernels()["normal_eq_fused"]
+    if lib.avm_normal_eq_warps(nf, f64) == 0:
+        raise ValueError(f"normal_eq_fused: {nf} frames do not fit a block's "
+                         f"shared memory")
+    D = 15 * nf + 13
+    empty = lambda *shape: torch.empty((B,) + shape, dtype=dtype, device=dev)
     outs = (empty(D, D), empty(D), empty(F, D), empty(F), empty(F))
-    ptrs = [0 if x is None else x.data_ptr()
-            for x in (*st, *fixed.ins, fixed.H0, fixed.anchor, *outs)]
-    return ptrs, outs, st
+    ptrs = [0 if inputs.get(k) is None else inputs[k].data_ptr()
+            for k in shapes] + [x.data_ptr() for x in outs] + \
+        [_stamps_ptr(stamps, NE_STAMPS, dev)]
+    table = (ctypes.c_void_p * len(ptrs))(*ptrs)
+    with torch.cuda.device(dev):
+        err = lib.avm_normal_eq_fused(
+            ctypes.addressof(table), B, nf, F, float(c2), float(sqrt_aw),
+            int(est_ext), f64, torch.cuda.current_stream().cuda_stream)
+    _raise_on(err, "normal_eq_fused")
+    launch_counts["normal_eq_fused"] += 1
+    return outs

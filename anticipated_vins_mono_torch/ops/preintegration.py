@@ -11,8 +11,8 @@ dt = 0, which makes the midpoint update an exact no-op but for the
 renormalisation of δq.
 
 On the card the whole scan of a call is one launch of a hand-written kernel
-(`csrc/preint_scan.cu` through `hopper_kernels.preint_scan`); the loop below,
-`preintegrate_plain`, is its plain version and the path for CPU tensors.
+(`csrc/preint_scan.cu`; `preintegrate` packs its launcher's arguments); the
+loop below, `preintegrate_plain`, is its plain version and the CPU path.
 
 State-block layout: [0:3]=δp, [3:6]=δθ, [6:9]=δv, [9:12]=δba, [12:15]=δbg.
 """
@@ -160,8 +160,21 @@ def preintegrate(dts: Tensor, accs: Tensor, gyrs: Tensor,
     CUDA tensors take one launch of the preintegration kernel, CPU tensors
     the loop over the N samples (`preintegrate_plain`).
     """
-    return hopper_kernels.preint_scan(dts, accs, gyrs, acc0, gyr0, ba, bg,
-                                      noise, with_cov)
+    if not accs.is_cuda:
+        return preintegrate_plain(dts, accs, gyrs, acc0, gyr0, ba, bg, noise,
+                                  with_cov)
+    dtype = accs.dtype
+    batch, n = accs.shape[:-2], accs.shape[-2]
+    flat = lambda x, *shape: hopper_kernels.flat_batch(x, batch, shape, dtype)
+    outs = hopper_kernels.preint_scan(
+        flat(dts, n), flat(accs, n, 3), flat(gyrs, n, 3),
+        *(flat(x, 3) for x in (acc0, gyr0, ba, bg)),
+        # Q's diagonal, as the loop builds Q
+        noise.noise_cov18(torch.float64).diagonal().tolist(), noise.dt_ref,
+        with_cov=with_cov)
+    dp, dq, dv, J, P, dt_sum, S = hopper_kernels.unflat_batch(outs, batch)
+    return Preintegrated(dp, dq, dv, J, P, dt_sum, ba.to(dtype), bg.to(dtype),
+                         S)
 
 
 def preintegrate_plain(dts: Tensor, accs: Tensor, gyrs: Tensor,

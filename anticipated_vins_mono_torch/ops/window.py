@@ -34,7 +34,7 @@ from typing import NamedTuple, Optional
 
 import torch
 
-from anticipated_vins_mono_torch.ops import factors, lie
+from anticipated_vins_mono_torch.ops import factors, hopper_kernels, lie
 from anticipated_vins_mono_torch.ops.preintegration import Preintegrated
 from anticipated_vins_mono_torch.utils.timing import span, spanned
 from anticipated_vins_mono_torch.utils.tree import tree_map, tree_to
@@ -665,19 +665,77 @@ def build_normal_equations(r_all, J_all, p_res, p_rows, p_rho,
 
 
 def normal_equations_fast(state: WindowState, meas: WindowMeasurements,
-                          cfg: WindowConfig, anchor_ref=None, fixed=None):
-    """Normal equations for the LM hot loop, (H, g, H_lp, h_ll, g_l).
+                          cfg: WindowConfig, anchor_ref=None):
+    """Normal equations for the LM hot loop, (H, g, H_lp, h_ll, g_l), of a
+    window without a relocalization frame or td estimation, by `lm_solve`'s
+    route (`_normal_eq_route`): on CUDA tensors (float32 or float64) one
+    launch of the hand-written kernel, which linearizes every factor in
+    registers; on CPU tensors the plain version."""
+    if anchor_ref is None:
+        anchor_ref = (state.p[..., 0, :], state.q[..., 0, :])
+    return _normal_eq_route(state, meas, cfg, anchor_ref)(state)
 
-    On CUDA tensors (float32 or float64) one launch of the hand-written
-    kernel `hopper_kernels.normal_eq_fused`, which linearizes every factor
-    in registers; `fixed` is `hopper_kernels.normal_eq_fixed`'s for these
-    measurements (what does not change over a solve), made per call when
-    None. On CPU tensors the plain version, `normal_equations_fast_plain`.
-    Without a relocalization frame or td estimation: `lm_solve` sends those
-    to `linearize`.
-    """
-    from anticipated_vins_mono_torch.ops.hopper_kernels import normal_eq_fused
-    return normal_eq_fused(state, meas, cfg, anchor_ref, fixed)
+
+def _normal_eq_route(state: WindowState, meas: WindowMeasurements,
+                     cfg: WindowConfig, anchor_ref):
+    """The normal equations of a solve's LM iterations as a function of the
+    iterate; the one place that chooses how they are built. A relocalization
+    frame or td estimation: `linearize`'s dense rows, on any device (the
+    kernel has neither the relocalization rows nor a td column; no
+    configuration of the main paths estimates td). CPU tensors: the plain
+    version. CUDA tensors: one launch of `hopper_kernels.normal_eq_fused` an
+    iteration (`stamps` as it takes them), what it reads that does not
+    change over the solve made here, once."""
+    if meas.relo_pts is not None or cfg.estimate_td:
+        return lambda st: build_normal_equations(
+            *linearize(st, meas, cfg, anchor_ref)[:5], cfg)
+    if not state.p.is_cuda:
+        return lambda st: normal_equations_fast_plain(st, meas, cfg,
+                                                      anchor_ref)
+    shapes = hopper_kernels.normal_eq_inputs(cfg.nf, cfg.max_feats)
+    fixed = _kernel_fixed_inputs(state, meas, cfg, anchor_ref, shapes)
+
+    def kernel(st, stamps=None):
+        batch = st.p.shape[:-2]
+        out = hopper_kernels.normal_eq_fused(
+            {**fixed, **{k: hopper_kernels.flat_batch(getattr(st, k), batch,
+                                                       shapes[k])
+                         for k in WindowState._fields if k in shapes}},
+            float(cfg.cauchy_scale) ** 2, float(cfg.anchor_weight) ** 0.5,
+            cfg.estimate_extrinsic, stamps)
+        return hopper_kernels.unflat_batch(out, batch)
+    return kernel
+
+
+def _kernel_fixed_inputs(state: WindowState, meas: WindowMeasurements,
+                         cfg: WindowConfig, anchor_ref, shapes: dict) -> dict:
+    """What the normal equations' kernel reads that does not change over a
+    solve, by its input names (`shapes`, `hopper_kernels.normal_eq_inputs`),
+    flattened to [B, ...] in the state's type: the measurements (S from P
+    where the pairs carry none), the prior and its linearization point, the
+    gauge anchor's reference, H0 = J_sᵀJ_s of the prior, anchor and ZUPT
+    rows, whose Jacobian does not depend on the state, and the anchor
+    frames (int64)."""
+    batch, dtype = state.p.shape[:-2], state.p.dtype
+    pre, prior = meas.pre, meas.prior
+    J_s = _fixed_rows(state, meas, cfg, anchor_ref)
+    given = dict(
+        pre_dp=pre.dp, pre_dq=pre.dq, pre_dv=pre.dv, pre_J=pre.J,
+        pre_dt=pre.dt_sum, pre_ba=pre.ba, pre_bg=pre.bg,
+        pre_S=pre.S if pre.S is not None else factors.sqrt_info_from_cov(
+            pre.P),
+        pre_valid=meas.pre_valid, pts=meas.pts, mask=meas.mask,
+        feat_valid=meas.feat_valid, feat_w=meas.feat_w, zupt_w=meas.zupt_w,
+        J0=prior.J0, r0=prior.r0, prior_w=prior.weight,
+        p_ref=anchor_ref[0], q_ref=anchor_ref[1], pin_rp=meas.anchor_pin_rp,
+        H0=J_s.mT @ J_s,
+        **{"lin_" + k: getattr(prior.lin, k) for k in WindowState._fields
+           if "lin_" + k in shapes})
+    fixed = {k: hopper_kernels.flat_batch(x, batch, shapes[k], dtype)
+             for k, x in given.items()}
+    fixed["anchor"] = hopper_kernels.flat_batch(meas.anchor, batch,
+                                                shapes["anchor"], torch.int64)
+    return fixed
 
 
 def _fixed_rows(state: WindowState, meas: WindowMeasurements,
@@ -704,7 +762,7 @@ def normal_equations_fast_plain(state: WindowState, meas: WindowMeasurements,
     of a row whose only nonzero blocks are (anchor, frame, ext, td) expands
     into block-pair terms) at a fraction of the memory traffic. The small
     row groups (IMU, prior, anchor, ZUPT) stay dense. Used when no relo
-    frame is attached. The plain version of `hopper_kernels.normal_eq_fused`
+    frame is attached. The plain version of the normal equations' kernel
     and the path of CPU tensors.
     """
     F, NF, D = cfg.max_feats, cfg.nf, cfg.dim
@@ -831,14 +889,13 @@ def lm_solve(state: WindowState, meas: WindowMeasurements, cfg: WindowConfig,
     λ, cost and the accept/reject decision are per scenario; nothing inside
     the loop synchronises with the host. With `cfg.fused_schur` the linear
     solve of every iteration is ONE launch of the fused Schur kernel over the
-    whole batch (float32 only). On a CUDA device the normal equations of
-    every iteration are one launch of `hopper_kernels.normal_eq_fused`, whose
-    solve-constant inputs are made once before the loop; a window with a
-    relocalization frame, or a configuration that estimates td (no
-    configuration of the main paths does, so the kernel has no td column),
-    takes the dense rows of `linearize` instead, on any device. `device` is
-    where the solve runs: the inputs are moved there, and a CUDA device that
-    is not present raises.
+    whole batch (float32 only). `_normal_eq_route` chooses how the normal
+    equations are built, once a solve: on a CUDA device one launch of the
+    hand-written kernel an iteration, whose solve-constant inputs it makes
+    before the loop; the plain version on the CPU; the dense rows of
+    `linearize` on any device for a window with a relocalization frame or a
+    configuration that estimates td. `device` is where the solve runs: the
+    inputs are moved there, and a CUDA device that is not present raises.
     Returns (state, diagnostics dict of per-scenario tensors).
     """
     device = torch.device(device)
@@ -854,27 +911,14 @@ def _lm_solve(state, meas, cfg):
     dtype, dev = state.p.dtype, state.p.device
     D, F = cfg.dim, cfg.max_feats
 
-    dense = meas.relo_pts is not None or cfg.estimate_td
-    if not dense:
-        from anticipated_vins_mono_torch.ops.hopper_kernels import \
-            normal_eq_fixed
-        fixed = normal_eq_fixed(state, meas, cfg, anchor_ref)
+    normal_equations = _normal_eq_route(state, meas, cfg, anchor_ref)
 
     def body(st, lam, cost):
         with span("lm.normal_equations"):
-            if not dense:
-                H, g, H_lp, h_ll, g_l = normal_equations_fast(
-                    st, meas, cfg, anchor_ref, fixed)
-            else:
-                r_all, J_all, p_res, p_rows, p_rho, _ = linearize(
-                    st, meas, cfg, anchor_ref)
-                H, g, H_lp, h_ll, g_l = build_normal_equations(
-                    r_all, J_all, p_res, p_rows, p_rho, cfg)
+            H, g, H_lp, h_ll, g_l = normal_equations(st)
         with span("lm.schur"):
             if cfg.fused_schur:
-                from anticipated_vins_mono_torch.ops.hopper_kernels import \
-                    schur_solve_fused
-                dx, d_rho, pred = schur_solve_fused(
+                dx, d_rho, pred = hopper_kernels.schur_solve_fused(
                     H.reshape(-1, D, D), g.reshape(-1, D),
                     H_lp.reshape(-1, F, D), h_ll.reshape(-1, F),
                     g_l.reshape(-1, F), lam.reshape(-1))

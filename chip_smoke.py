@@ -408,9 +408,9 @@ CALLED_SHAPES = {}
 
 
 def record_called_shapes(hk):
-    """Wrap the four kernel entry points of `hk` so that each call on the
-    card records its shape (the wrappers' launch counts are untouched).
-    Returns a function that puts the wrappers back."""
+    """Wrap the kernel entry points of `hk` (the logdet and Schur wrappers,
+    the two launchers) so that each call on the card records its shape (the
+    launch counts are untouched). Returns a function that puts them back."""
     shape_of = {
         "logdet_psd_batched": lambda M, *_: tuple(M.shape),
         "logdet_psd_affine_batched": lambda Om, Deltas, *_: tuple(
@@ -418,23 +418,22 @@ def record_called_shapes(hk):
         "schur_solve_fused": lambda H, g, H_lp, *_: (
             H.shape[0], H.shape[1], H_lp.shape[1]),
         # (pairs, samples, type, with_cov)
-        "preint_scan": lambda dts, accs, *rest: (
-            accs[..., 0, 0].numel(), accs.shape[-2],
-            str(accs.dtype).split(".")[-1],
-            int(rest[6] if len(rest) > 6 else True)),
+        "preint_scan": lambda dts, accs, *rest, with_cov=True: (
+            accs.shape[0], accs.shape[1], str(accs.dtype).split(".")[-1],
+            int(rest[7] if len(rest) > 7 else with_cov)),
         # (scenarios, window, landmark slots, type)
-        "normal_eq_fused": lambda state, meas, cfg, *_: (
-            state.p[..., 0, 0].numel(), cfg.window, cfg.max_feats,
-            str(state.p.dtype).split(".")[-1]),
+        "normal_eq_fused": lambda ins, *_, **__: (
+            ins["p"].shape[0], ins["p"].shape[1] - 1,
+            ins["inv_depth"].shape[1], str(ins["p"].dtype).split(".")[-1]),
     }
     saved = {name: getattr(hk, name) for name in shape_of}
     for name, shape in shape_of.items():
         CALLED_SHAPES[name] = set()
 
         def recorded(*args, _fn=saved[name], _name=name, _shape=shape, **kw):
-            lead = args[0].p if _name == "normal_eq_fused" else args[0]
+            lead = args[0]["p"] if _name == "normal_eq_fused" else args[0]
             if lead.is_cuda:
-                CALLED_SHAPES[_name].add(_shape(*args))
+                CALLED_SHAPES[_name].add(_shape(*args, **kw))
             return _fn(*args, **kw)
         setattr(hk, name, recorded)
     return lambda: [setattr(hk, n, f) for n, f in saved.items()]
@@ -460,9 +459,10 @@ def check_called_shapes(hk):
     for B, D, F in sorted(CALLED_SHAPES["schur_solve_fused"]):
         schur.append({"B": B, "D": D, "F": F, "max_abs_err": schur_agrees(
             hk, schur_batch(B, D, F))})
-    preint = [dict(zip(("B", "N", "dtype", "with_cov"), key), **preint_agrees(
-        hk, *key)) for key in sorted(CALLED_SHAPES["preint_scan"])]
-    ne = [dict(zip(("B", "window", "F", "dtype"), key), **ne_agrees(hk, *key))
+    preint = [dict(zip(("B", "N", "dtype", "with_cov"), key),
+                   **preint_agrees(*key))
+              for key in sorted(CALLED_SHAPES["preint_scan"])]
+    ne = [dict(zip(("B", "window", "F", "dtype"), key), **ne_agrees(*key))
           for key in sorted(CALLED_SHAPES["normal_eq_fused"])]
     return {"plain_loader": plain, "fused_loader": fused}, schur, preint, ne
 
@@ -499,7 +499,7 @@ def preint_work(B: int, N: int, real: int, with_cov: bool = True):
     return nbytes, B * (real * step + tail)
 
 
-def preint_agrees(hk, B: int, N: int, dtype: str, with_cov: int = 1,
+def preint_agrees(B: int, N: int, dtype: str, with_cov: int = 1,
                   interior=()) -> dict:
     """The preintegration kernel against its plain version (the loop) on the
     card, on B seeded pairs of N samples (the frame's pattern: min(N, 20)
@@ -518,7 +518,7 @@ def preint_agrees(hk, B: int, N: int, dtype: str, with_cov: int = 1,
                     interior=interior, dtype=torch.float64)
     ref64 = pre.preintegrate_plain(*a64, noise, with_cov=bool(with_cov))
     args = a64 if dtype == "float64" else [x.float() for x in a64]
-    got = hk.preint_scan(*args, noise, bool(with_cov))
+    got = pre.preintegrate(*args, noise, with_cov=bool(with_cov))
     ref = pre.preintegrate_plain(*args, noise, with_cov=bool(with_cov))
     torch.cuda.synchronize()
     rel = lambda a, b, s: float((a.double() - b.double()).abs().max()) / s
@@ -566,7 +566,7 @@ def ne_work(B: int, window: int = 10, F: int = 128):
     return B * (ins + outs) * 4, B * (proj + imu + prior)
 
 
-def ne_agrees(hk, B: int, window: int, F: int, dtype: str) -> dict:
+def ne_agrees(B: int, window: int, F: int, dtype: str) -> dict:
     """The normal equations' kernel against its plain version
     (`window.normal_equations_fast_plain`) on the card, on B seeded
     scenarios of `synthetic.window_batch` (a prior, ZUPT, a roll/pitch pin,
@@ -585,7 +585,7 @@ def ne_agrees(hk, B: int, window: int, F: int, dtype: str) -> dict:
     if dtype == "float32":
         cast = lambda x: x.float() if x.is_floating_point() else x
         st, ms = tree_map(cast, st), tree_map(cast, ms)
-    got = hk.normal_eq_fused(st, ms, cfg)
+    got = win.normal_equations_fast(st, ms, cfg)
     ref = win.normal_equations_fast_plain(st, ms, cfg)
     torch.cuda.synchronize()
     eps = torch.finfo(torch.float32).eps
@@ -805,26 +805,26 @@ def ne_kernel(hk):
     both types; its bits the same on a second launch and from a replayed
     CUDA graph; timed graph-replayed at B = 1, 64 and 512 (float32, and
     float64 at 64) beside its bound, the plain version's time and one eager
-    call's (the wrapper's host time included), with block 0's phase split."""
+    call's (the packing's host time included), with block 0's phase split:
+    `window._normal_eq_route`'s function, the fixed inputs made once."""
     from anticipated_vins_mono_torch.ops import window as win
     from anticipated_vins_mono_torch.utils.synthetic import window_batch
     from anticipated_vins_mono_torch.utils.tree import tree_map
     checked = [dict(zip(("B", "window", "F", "dtype"), key),
-                    **ne_agrees(hk, *key))
+                    **ne_agrees(*key))
                for key in ((1, 10, 128, "float32"), (64, 10, 128, "float32"),
                            (1, 10, 128, "float64"), (64, 10, 128, "float64"))]
     cfg = win.WindowConfig(window=10, max_feats=128)
     cast = lambda x: x.float() if x.is_floating_point() else x
+    anchor_ref = lambda st: (st.p[..., 0, :], st.q[..., 0, :])
     by_batch = {}
     for B in (1, 64, 512):
         st, ms = window_batch(cfg, B, seed=B, device="cuda")
-        fixed = hk.normal_eq_fixed(st, ms, cfg)
-        f64_ms = kernel_ms(lambda: hk.normal_eq_fused(st, ms, cfg,
-                                                      fixed=fixed)) \
-            if B == 64 else None
+        route = win._normal_eq_route(st, ms, cfg, anchor_ref(st))
+        f64_ms = kernel_ms(lambda: route(st)) if B == 64 else None
         st, ms = tree_map(cast, st), tree_map(cast, ms)
-        fixed = hk.normal_eq_fixed(st, ms, cfg)
-        run = lambda: hk.normal_eq_fused(st, ms, cfg, fixed=fixed)
+        route = win._normal_eq_route(st, ms, cfg, anchor_ref(st))
+        run = lambda: route(st)
         eager = run()
         if not all(torch.equal(a, b) for a, b in zip(run(), eager)):
             raise AssertionError("normal_eq_fused: two launches differ")
@@ -835,7 +835,7 @@ def ne_kernel(hk):
         ms_ = kernel_ms(run, 20)
         stamps = torch.zeros(len(hk.NE_STAMPS), dtype=torch.int64,
                              device="cuda")
-        hk.normal_eq_fused(st, ms, cfg, fixed=fixed, stamps=stamps)
+        route(st, stamps=stamps)
         b_ms, b_by = bound(*ne_work(B))
         by_batch[f"b{B}"] = {
             "ms": ms_, "f64_ms": f64_ms, "eager_ms": cuda_ms(run, 10, 2),
@@ -868,7 +868,8 @@ def preint_kernel(hk):
     dt = 0 rows, in float64, without the covariance, on a covariance that is
     not positive definite (S all NaN, as the loop's); replayed from a CUDA
     graph and timed beside its bound, the loop's time and one eager call's
-    (the wrapper's host time included)."""
+    (the packing's host time included): `preintegrate`, which packs the
+    arguments and launches it."""
     from anticipated_vins_mono_torch.ops import preintegration as pre
     from anticipated_vins_mono_torch.utils.synthetic import imu_pairs
 
@@ -878,7 +879,7 @@ def preint_kernel(hk):
 
     B, N, real = 10, 64, 20
     checked = [dict(zip(("B", "N", "dtype", "with_cov", "interior"), key),
-                    **preint_agrees(hk, *key))
+                    **preint_agrees(*key))
                for key in ((B, N, "float32", 1, ()), (B, N, "float64", 1, ()),
                            (B, N, "float32", 0, ()),
                            (B, N, "float32", 1, (3, 4, 11)),
@@ -887,14 +888,14 @@ def preint_kernel(hk):
     noise = pre.ImuNoise()
     for dtype in (torch.float32, torch.float64):
         args = imu_pairs(4, batch=(B,), dtype=dtype)
-        got = hk.preint_scan(*args, NegativeNoise())
+        got = pre.preintegrate(*args, NegativeNoise())
         ref = pre.preintegrate_plain(*args, NegativeNoise())
         if not (torch.isnan(got.S).all() and torch.isnan(ref.S).all()
                 and torch.isfinite(got.dp).all()):
             raise AssertionError("preint_scan: S on a covariance that is not "
                                  "positive definite")
     args = imu_pairs(1, batch=(B,), n=N, real=real)
-    run = lambda: hk.preint_scan(*args, noise)
+    run = lambda: pre.preintegrate(*args, noise)
     eager = run()
     replayed = graph_replay(run)
     if not all(a is None and b is None or torch.equal(a, b)
@@ -915,7 +916,7 @@ def preint_kernel(hk):
         "max_rel_err": max(c["max_rel_err_vs_f64_loop"] for c in checked
                            if c["dtype"] == "float32"),
         "ms": ms,
-        "f64_ms": kernel_ms(lambda: hk.preint_scan(*args64, noise)),
+        "f64_ms": kernel_ms(lambda: pre.preintegrate(*args64, noise)),
         "eager_ms": cuda_ms(run, 20, 2),
         "plain_ms": cuda_ms(lambda: pre.preintegrate_plain(*args, noise), 3, 1),
         "bound_ms": b_ms, "bound_by": b_by,

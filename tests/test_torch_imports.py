@@ -42,6 +42,42 @@ def test_no_jax_and_nothing_of_the_jax_package(path):
             f"{path.name} imports {mod}"
 
 
+def _package_imports(tree, package="anticipated_vins_mono_torch"):
+    """(module, inside a function body) for every module of `package` that
+    an import statement of the parsed source names; `from a import b`
+    names `a.b`."""
+    inner = set()
+    for fn in ast.walk(tree):
+        if isinstance(fn, (ast.FunctionDef, ast.AsyncFunctionDef, ast.Lambda)):
+            inner.update(id(n) for n in ast.walk(fn) if n is not fn)
+    found = []
+    for node in ast.walk(tree):
+        if isinstance(node, ast.Import):
+            mods = [a.name for a in node.names]
+        elif isinstance(node, ast.ImportFrom):
+            mods = [f"{node.module}.{a.name}" for a in node.names]
+        else:
+            continue
+        found += [(m, id(node) in inner) for m in mods
+                  if m.split(".")[0] == package]
+    return found
+
+
+def test_the_kernel_layer_sits_below_the_ops():
+    """The imports between the ops and their kernels point one way: no
+    `ops/` module imports from the package inside a function body (where
+    an import cycle would hide), and `ops/hopper_kernels.py` imports
+    nothing of the package but `ops.lie`."""
+    ops = sorted((ROOT / "anticipated_vins_mono_torch" / "ops").glob("*.py"))
+    lazy = [(p.name, m) for p in ops
+            for m, inner in _package_imports(ast.parse(p.read_text()))
+            if inner]
+    assert lazy == []
+    hk = ROOT / "anticipated_vins_mono_torch" / "ops" / "hopper_kernels.py"
+    assert [m for m, _ in _package_imports(ast.parse(hk.read_text()))] == \
+        ["anticipated_vins_mono_torch.ops.lie"]
+
+
 def test_port_has_the_expected_modules_and_kernel_sources():
     names = {str(p.relative_to(ROOT / "anticipated_vins_mono_torch"))
              for p in PORT_FILES[:-1]}

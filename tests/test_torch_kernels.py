@@ -335,6 +335,30 @@ def test_fused_switch_in_lm_solve_takes_the_wrapper_on_cpu():
         tw.lm_solve(p64.init, p64.meas, cfg, device="cpu")
 
 
+def _launcher_inputs(kernel):
+    """Well-formed flat inputs of a launcher, on the CPU: B = 2 pairs of
+    N = 8 samples, or B = 2 windows of NF = 4 frames and 12 slots."""
+    if kernel == "preint_scan":
+        shapes = [(2, 8), (2, 8, 3), (2, 8, 3)] + [(2, 3)] * 4
+        return [torch.zeros(s) for s in shapes] + [[1e-4] * 18, 0.005], {}
+    inputs = {k: torch.zeros((2,) + s, dtype=torch.int64 if k == "anchor"
+                             else torch.float32)
+              for k, s in hk.normal_eq_inputs(4, 12).items()}
+    return [inputs, 1.0, 31.6, True], {}
+
+
+@pytest.mark.parametrize("kernel", ["preint_scan", "normal_eq_fused"])
+def test_launchers_take_cuda_tensors_only(kernel):
+    """The launchers of the two kernels with no Pallas counterpart have no
+    CPU path: well-formed CPU tensors raise before anything is built or
+    counted (the op that owns the types takes the plain version there)."""
+    args, kw = _launcher_inputs(kernel)
+    hk.reset_launch_counts()
+    with pytest.raises(ValueError, match="CUDA"):
+        getattr(hk, kernel)(*args, **kw)
+    assert hk.launch_counts[kernel] == 0
+
+
 @pytest.mark.gpu
 def test_cuda_kernels_match_plain_versions():
     """Runs on a machine with a CUDA card and nvcc (`pytest -m gpu`)."""

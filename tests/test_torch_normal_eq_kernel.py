@@ -1,13 +1,16 @@
-"""The normal equations' kernel (`csrc/normal_eq_fused.cu`, wrapper
-`hopper_kernels.normal_eq_fused`) and its plain version,
+"""The normal equations' kernel (`csrc/normal_eq_fused.cu`, launcher
+`hopper_kernels.normal_eq_fused`, route and packing
+`window._normal_eq_route`) and its plain version,
 `window.normal_equations_fast_plain`.
 
-On the CPU: the wrapper takes the plain version and launches nothing; the
-prior, gauge anchor and ZUPT rows whose JᵀJ the kernel takes once per solve
-are the plain version's small rows without the IMU group, and do not depend
-on the state; `lm_solve` sends td estimation to the dense rows of
-`linearize`, and everything else through `normal_equations_fast`. (The JAX
-parity of the plain version is `tests/test_torch_window.py`.)
+On the CPU: `normal_equations_fast` and the route are the plain version and
+launch nothing; the prior, gauge anchor and ZUPT rows whose JᵀJ the route
+gives the kernel once per solve are the plain version's small rows without
+the IMU group, and do not depend on the state; `lm_solve` asks the route
+once a solve, which sends td estimation to the dense rows of `linearize`
+and everything else to the plain version. (The JAX parity of the plain
+version is `tests/test_torch_window.py`; the launcher's refusal of CPU
+tensors is `tests/test_torch_kernels.py`'s.)
 
 On a card (`gpu` marker, `pytest -m gpu`): the kernel against the plain
 version on the same card, its determinism, its launch count, and an
@@ -33,15 +36,25 @@ def _problem(cfg, B, device="cpu", dtype=torch.float64, **kw):
     return window_batch(cfg, B, seed=3, dtype=dtype, device=device, **kw)
 
 
+def _anchor_ref(st):
+    return st.p[..., 0, :], st.q[..., 0, :]
+
+
 @pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
-def test_wrapper_on_cpu_takes_the_plain_version_and_counts_no_launch(dtype):
+def test_wrapper_on_cpu_takes_the_plain_version_and_counts_no_launch(
+        monkeypatch, dtype):
+    """On CPU tensors `normal_equations_fast` and the route's function are
+    the plain version, bit for bit; the kernel's inputs are never made."""
+    def kernel_inputs(*a, **kw):
+        raise AssertionError("the kernel's inputs made on CPU tensors")
+
+    monkeypatch.setattr(win, "_kernel_fixed_inputs", kernel_inputs)
     st, ms = _problem(SMALL, 2, dtype=dtype)
     hk.reset_launch_counts()
     ref = win.normal_equations_fast_plain(st, ms, SMALL)
-    for got in (hk.normal_eq_fused(st, ms, SMALL),
-                win.normal_equations_fast(st, ms, SMALL)):
+    route = win._normal_eq_route(st, ms, SMALL, _anchor_ref(st))
+    for got in (route(st), win.normal_equations_fast(st, ms, SMALL)):
         assert all(torch.equal(a, b) for a, b in zip(got, ref))
-    assert hk.normal_eq_fixed(st, ms, SMALL) is None
     assert hk.launch_counts["normal_eq_fused"] == 0
 
 
@@ -62,9 +75,20 @@ def test_fixed_rows_are_the_small_rows_without_the_imu_group(zupt):
 @pytest.mark.parametrize("estimate_td", [False, True])
 def test_lm_solve_routes_td_estimation_to_the_dense_rows(monkeypatch,
                                                          estimate_td):
-    calls = {"fast": 0, "linearize": 0, "fixed": 0}
-    fast, lin, fixed = (win.normal_equations_fast, win.linearize,
-                        hk.normal_eq_fixed)
+    """The route's function is the dense rows' normal equations with td
+    estimation and the plain version's without, bit for bit; `lm_solve`
+    asks the route once a solve and calls what it gives once an iteration;
+    on CPU tensors the kernel's inputs are never made."""
+    cfg = SMALL._replace(iters=2, estimate_td=estimate_td)
+    st, ms = _problem(cfg, 1)
+    ref = _anchor_ref(st)
+    want = (win.build_normal_equations(*win.linearize(st, ms, cfg, ref)[:5],
+                                       cfg) if estimate_td else
+            win.normal_equations_fast_plain(st, ms, cfg, ref))
+    got = win._normal_eq_route(st, ms, cfg, ref)(st)
+    assert all(torch.equal(a, b) for a, b in zip(got, want))
+    calls = {"route": 0, "normal_equations_fast_plain": 0, "linearize": 0,
+             "_kernel_fixed_inputs": 0}
 
     def count(name, fn):
         def wrapped(*a, **kw):
@@ -72,17 +96,16 @@ def test_lm_solve_routes_td_estimation_to_the_dense_rows(monkeypatch,
             return fn(*a, **kw)
         return wrapped
 
-    monkeypatch.setattr(win, "normal_equations_fast", count("fast", fast))
-    monkeypatch.setattr(win, "linearize", count("linearize", lin))
-    monkeypatch.setattr(hk, "normal_eq_fixed", count("fixed", fixed))
-    cfg = SMALL._replace(iters=2, estimate_td=estimate_td)
-    st, ms = _problem(cfg, 1)
+    monkeypatch.setattr(win, "_normal_eq_route",
+                        count("route", win._normal_eq_route))
+    for name in list(calls)[1:]:
+        monkeypatch.setattr(win, name, count(name, getattr(win, name)))
     out, diag = win.lm_solve(st, ms, cfg, device="cpu")
     assert torch.isfinite(diag["cost"]).all()
-    if estimate_td:
-        assert calls == {"fast": 0, "linearize": 2, "fixed": 0}
-    else:
-        assert calls == {"fast": 2, "linearize": 0, "fixed": 1}
+    assert calls == {"route": 1, "normal_equations_fast_plain":
+                     0 if estimate_td else 2,
+                     "linearize": 2 if estimate_td else 0,
+                     "_kernel_fixed_inputs": 0}
 
 
 # ----------------------------------------------------------------------------
@@ -131,11 +154,11 @@ def test_kernel_matches_the_plain_version_on_the_card(variant, B):
     st, ms = _problem(cfg, B, device="cuda", **kw)
     ref64 = win.normal_equations_fast_plain(st, ms, cfg)
     hk.reset_launch_counts()
-    got64 = hk.normal_eq_fused(st, ms, cfg)
+    got64 = win.normal_equations_fast(st, ms, cfg)
     assert hk.launch_counts["normal_eq_fused"] == 1
     f32 = lambda x: x.float() if x.is_floating_point() else x
     st32, ms32 = tree_map(f32, st), tree_map(f32, ms)
-    got32 = hk.normal_eq_fused(st32, ms32, cfg)
+    got32 = win.normal_equations_fast(st32, ms32, cfg)
     ref32 = win.normal_equations_fast_plain(st32, ms32, cfg)
     assert hk.launch_counts["normal_eq_fused"] == 2
     eps = torch.finfo(torch.float32).eps
@@ -154,14 +177,15 @@ def test_kernel_matches_the_plain_version_on_the_card(variant, B):
 @pytest.mark.gpu
 @pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
 def test_kernel_is_deterministic_and_takes_fixed_inputs(dtype):
-    """The same inputs give the same bits on every launch, with `fixed`
-    made once or per call."""
+    """The same inputs give the same bits on every launch, with the fixed
+    inputs made once (the route's function, called twice) or per call
+    (`normal_equations_fast`)."""
     _needs_card()
     st, ms = _problem(FLAGSHIP, 64, device="cuda", dtype=dtype)
-    fixed = hk.normal_eq_fixed(st, ms, FLAGSHIP)
-    first = hk.normal_eq_fused(st, ms, FLAGSHIP)
-    for again in (hk.normal_eq_fused(st, ms, FLAGSHIP, fixed=fixed),
-                  hk.normal_eq_fused(st, ms, FLAGSHIP)):
+    route = win._normal_eq_route(st, ms, FLAGSHIP, _anchor_ref(st))
+    first = win.normal_equations_fast(st, ms, FLAGSHIP)
+    for again in (route(st), route(st),
+                  win.normal_equations_fast(st, ms, FLAGSHIP)):
         assert all(torch.equal(a, b) for a, b in zip(first, again))
 
 
@@ -191,9 +215,9 @@ def test_lm_solve_takes_the_same_steps_as_the_plain_version(monkeypatch):
     hk.reset_launch_counts()
     out_k, diag_k = win.lm_solve(st, ms, cfg)
     assert hk.launch_counts["normal_eq_fused"] == cfg.iters
-    plain = lambda state, meas, c, anchor_ref=None, fixed=None: \
-        win.normal_equations_fast_plain(state, meas, c, anchor_ref)
-    monkeypatch.setattr(win, "normal_equations_fast", plain)
+    plain = lambda state, meas, c, anchor_ref: lambda s: \
+        win.normal_equations_fast_plain(s, meas, c, anchor_ref)
+    monkeypatch.setattr(win, "_normal_eq_route", plain)
     lams.append([])
     out_p, diag_p = win.lm_solve(st, ms, cfg)
     out_64, _ = win.lm_solve(st64, ms64, FLAGSHIP)

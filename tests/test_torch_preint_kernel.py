@@ -1,9 +1,10 @@
-"""The IMU preintegration kernel (`csrc/preint_scan.cu`, wrapper
-`hopper_kernels.preint_scan`) and its plain version, the port's loop
-(`preintegration.preintegrate_plain`).
+"""The IMU preintegration kernel (`csrc/preint_scan.cu`, launcher
+`hopper_kernels.preint_scan`, route and packing `preintegration.preintegrate`)
+and its plain version, the port's loop (`preintegration.preintegrate_plain`).
 
-On the CPU: the wrapper takes the loop and launches nothing; `preintegrate`
-reaches the wrapper on every call, under one `preint` span; and the kernel's
+On the CPU: `preintegrate` is the loop and launches nothing, under one
+`preint` span a call (the launcher's refusal of CPU tensors is
+`tests/test_torch_kernels.py`'s); and the kernel's
 stopping rule — scan up to each pair's last row whose dt is not 0, then
 renormalise δq until it stops changing — gives the 64-step loop's result
 bit for bit, with trailing padding and interior dt = 0 rows. (The JAX
@@ -60,31 +61,37 @@ def _stopped_scan(args, noise, with_cov):
 
 @pytest.mark.parametrize("with_cov", [True, False])
 @pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
-def test_wrapper_on_cpu_takes_the_loop_and_counts_no_launch(dtype, with_cov):
+def test_wrapper_on_cpu_takes_the_loop_and_counts_no_launch(monkeypatch, dtype,
+                                                           with_cov):
+    """`preintegrate` on CPU tensors is `preintegrate_plain`, bit for bit,
+    and never reaches the launcher."""
+    def launcher(*a, **kw):
+        raise AssertionError("the launcher on CPU tensors")
+
+    monkeypatch.setattr(hk, "preint_scan", launcher)
     args = _pairs(0, dtype=dtype)
     hk.reset_launch_counts()
-    got = hk.preint_scan(*args, pre.ImuNoise(), with_cov=with_cov)
     ref = pre.preintegrate_plain(*args, pre.ImuNoise(), with_cov=with_cov)
     via = pre.preintegrate(*args, pre.ImuNoise(), with_cov=with_cov)
     for f in pre.Preintegrated._fields:
-        for x in (got, via):
-            a, b = getattr(x, f), getattr(ref, f)
-            assert (a is None and b is None) or torch.equal(a, b), f
+        a, b = getattr(via, f), getattr(ref, f)
+        assert (a is None and b is None) or torch.equal(a, b), f
     assert hk.launch_counts["preint_scan"] == 0
 
 
 def test_preintegrate_calls_the_wrapper_once_under_one_span(monkeypatch):
-    """Every `preintegrate` call goes through `hopper_kernels.preint_scan`
-    (which launches on a CUDA tensor and takes the loop on a CPU one), with
-    its arguments as given, and records one `preint` span."""
+    """Every `preintegrate` call on CPU tensors goes through
+    `preintegrate_plain` once, with its arguments as given (on CUDA tensors
+    it packs them for the launcher instead), and records one `preint`
+    span."""
     calls = []
-    wrapped = hk.preint_scan
+    wrapped = pre.preintegrate_plain
 
     def recording(*a, **kw):
         calls.append((a, kw))
         return wrapped(*a, **kw)
 
-    monkeypatch.setattr(hk, "preint_scan", recording)
+    monkeypatch.setattr(pre, "preintegrate_plain", recording)
     args = _pairs(1, batch=(3,))
     noise = pre.ImuNoise()
     with profile(activities=[ProfilerActivity.CPU]):
