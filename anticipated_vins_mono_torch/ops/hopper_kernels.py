@@ -14,16 +14,20 @@ Both kernels factor through one blocked in-shared-memory LDLᵀ
 (`csrc/blocked_ldl.cuh`); `blocked_ldl_plain` is that algorithm in plain
 PyTorch, in the kernel's order, for the tests.
 
-Two kernels replace no TPU kernel. `preint_scan` runs the IMU
+Three kernels replace no TPU kernel. `preint_scan` runs the IMU
 preintegration's whole midpoint scan of a call, and its Cholesky tail, in
 one launch (`csrc/preint_scan.cu`), float32 or float64, where the JAX
 package has a `lax.scan`. `normal_eq_fused` linearizes every projection and
 IMU factor of a window and sums the LM iteration's normal equations in one
 launch (`csrc/normal_eq_fused.cu`), float32 or float64, where the JAX
-package has XLA's linearization. Both are launchers of flat `[B, ...]`
-tensors and take CUDA tensors only: the op that owns the types packs them
-and chooses the route, and holds the plain version
-(`preintegration.preintegrate`, `window._normal_eq_route`).
+package has XLA's linearization. `lm_cost_fused` takes the LM iteration's
+cost phase, the retraction, the robust cost, the decision and the next
+iterate, in one launch (`csrc/lm_cost_fused.cu`), float32 or float64, where
+the JAX package has XLA inside its `lax.scan`; the two window kernels share
+their factors (`csrc/window_factors.cuh`). All three are launchers of flat
+`[B, ...]` tensors and take CUDA tensors only: the op that owns the types
+packs them and chooses the route, and holds the plain version
+(`preintegration.preintegrate`, `window._lm_route`).
 
 The CUDA sources are compiled with `nvcc` for `sm_90a` at first use, one
 compiler process per source started together, into `build/hopper_kernels/`
@@ -65,11 +69,13 @@ KERNEL_SOURCES = {
     "schur_solve_fused": "schur_solve_fused.cu",
     "preint_scan": "preint_scan.cu",
     "normal_eq_fused": "normal_eq_fused.cu",
+    "lm_cost_fused": "lm_cost_fused.cu",
 }
-# flags a source takes besides NVCC_FLAGS: the normal equations' factors
-# round each product and sum on its own, as PyTorch's elementwise operations
-# whose derivatives they follow do
-KERNEL_FLAGS = {"normal_eq_fused": ("-fmad=false",)}
+# flags a source takes besides NVCC_FLAGS: the window's factors round each
+# product and sum on its own, as PyTorch's elementwise operations whose
+# results and derivatives they follow do
+KERNEL_FLAGS = {"normal_eq_fused": ("-fmad=false",),
+                "lm_cost_fused": ("-fmad=false",)}
 
 # launches since the last reset, per kernel; a wrapper adds one exactly where
 # it launches its kernel
@@ -159,6 +165,12 @@ def _declare(name: str, lib):
         lib.avm_normal_eq_warps.argtypes = [i32, i32]
         fns = (lib.avm_normal_eq_fused, lib.avm_normal_eq_warps,
                lib.avm_normal_eq_init)
+    elif name == "lm_cost_fused":
+        # (pointers, batch, nf, nfeat, mode, c2, sqrt_aw, min_inv_depth,
+        #  nielsen, lam_up, lam_down, pred_f64, f64, stream)
+        lib.avm_lm_cost_fused.argtypes = [ptr] + [i32] * 4 + [f64] * 3 + \
+            [i32] + [f64] * 2 + [i32] * 2 + [ptr]
+        fns = (lib.avm_lm_cost_fused, lib.avm_lm_cost_init)
     elif name == "preint_scan":
         # (dts, accs, gyrs, acc0, gyr0, ba, bg, dp, dq, dv, J, P, dt_sum, S,
         #  batch, n, with_cov, f64, noise_var, dt_ref, stream)
@@ -701,3 +713,88 @@ def normal_eq_fused(inputs: dict, c2: float, sqrt_aw: float, est_ext: bool,
     _raise_on(err, "normal_eq_fused")
     launch_counts["normal_eq_fused"] += 1
     return outs
+
+
+def lm_cost_inputs(nf: int, nfeat: int) -> dict:
+    """The inputs of the cost phase's kernel by name, in the order of
+    `csrc/lm_cost_fused.cu`'s pointer table, each with its shape after the
+    batch: the normal equations' inputs but H0 (`normal_eq_inputs`)."""
+    return {k: s for k, s in normal_eq_inputs(nf, nfeat).items() if k != "H0"}
+
+
+# the kernel's modes and, for each, the step tensors it takes
+LM_COST_MODES = {"evaluate": (0, ()),
+                 "step": (1, ("dx", "d_rho", "pred", "lam", "cost")),
+                 "retract": (2, ("dx", "d_rho", "pred"))}
+# the outputs, in the order of the pointer table after the inputs
+LM_COST_OUTPUTS = ("p", "q", "v", "ba", "bg", "tic", "qic", "td", "inv_depth",
+                   "lam", "cost", "ok", "imu_chi2", "prior_chi2")
+
+
+def lm_cost_fused(inputs: dict, mode: str, c2: float, sqrt_aw: float,
+                  min_inv_depth: float, nielsen: bool, lam_up: float,
+                  lam_down: float, step: tuple = (),
+                  diagnostics: bool = False) -> dict:
+    """One launch of the cost phase's kernel on B scenarios, one block each:
+    `inputs` the tensors `lm_cost_inputs` names, as `normal_eq_fused` takes
+    them (the state's leaves the iterate). `mode`:
+
+    - "evaluate": the cost at the state; with `diagnostics` also `imu_chi2`
+      and `prior_chi2` (`window.imu_chi2_mean`, `window.prior_chi2`);
+    - "step": `step` = (dx [B,D], d_rho [B,F], pred [B], lam [B], cost [B])
+      → the next iterate's leaves (p ... inv_depth), `lam`, `cost` and `ok`;
+    - "retract": `step` = (dx, d_rho, pred) → the candidate's leaves, its
+      `cost`, and in `ok` whether the step was finite.
+
+    dx, d_rho and lam are of the state's type, pred float32 or float64, cost
+    float64. `c2`, `sqrt_aw` as `normal_eq_fused`; `nielsen` the damping rule
+    ("halving" by `lam_up` and `lam_down` otherwise). Returns the outputs by
+    name: the leaves and lam in the state's type, cost [B] float64, ok [B]
+    bool, imu_chi2 and prior_chi2 [B]; nothing is written into the inputs."""
+    nf, F = inputs["p"].shape[1], inputs["inv_depth"].shape[1]
+    shapes = lm_cost_inputs(nf, F)
+    B, dtype, dev = _check_inputs("lm_cost_fused", inputs, shapes, NE_OPTIONAL)
+    code, names = LM_COST_MODES[mode]
+    D = 15 * nf + 13
+    want = {"dx": ((D,), (dtype,)), "d_rho": ((F,), (dtype,)),
+            "pred": ((), (torch.float32, torch.float64)),
+            "lam": ((), (dtype,)), "cost": ((), (torch.float64,))}
+    if len(step) != len(names):
+        raise ValueError(f"lm_cost_fused: {mode} takes {names}, got "
+                         f"{len(step)} tensors")
+    for name, x in zip(names, step):
+        shape, types = want[name]
+        if (x.dtype not in types or x.device != dev
+                or x.shape != (B, *shape) or not x.is_contiguous()):
+            raise ValueError(
+                f"lm_cost_fused: {name}: expected a contiguous {types[0]} "
+                f"{(B, *shape)} on {dev}, got {x.dtype} {tuple(x.shape)} on "
+                f"{x.device}")
+    empty = lambda *shape, dt=dtype: torch.empty((B,) + shape, dtype=dt,
+                                                  device=dev)
+    out = {}
+    if code:
+        out.update({k: empty(*shapes[k]) for k in LM_COST_OUTPUTS[:9]})
+    if mode == "step":
+        out["lam"] = empty()
+    out["cost"] = empty(dt=torch.float64)
+    if code:
+        out["ok"] = empty(dt=torch.bool)
+    if mode == "evaluate" and diagnostics:
+        out["imu_chi2"], out["prior_chi2"] = empty(), empty()
+    ptrs = [0 if inputs.get(k) is None else inputs[k].data_ptr()
+            for k in shapes] + [x.data_ptr() for x in step] + \
+        [0] * (5 - len(step)) + \
+        [out[k].data_ptr() if k in out else 0 for k in LM_COST_OUTPUTS]
+    table = (ctypes.c_void_p * len(ptrs))(*ptrs)
+    pred_f64 = int(len(step) > 2 and step[2].dtype == torch.float64)
+    lib = build_kernels()["lm_cost_fused"]
+    with torch.cuda.device(dev):
+        err = lib.avm_lm_cost_fused(
+            ctypes.addressof(table), B, nf, F, code, float(c2),
+            float(sqrt_aw), float(min_inv_depth), int(nielsen), float(lam_up),
+            float(lam_down), pred_f64, int(dtype == torch.float64),
+            torch.cuda.current_stream().cuda_stream)
+    _raise_on(err, "lm_cost_fused")
+    launch_counts["lm_cost_fused"] += 1
+    return out

@@ -30,7 +30,7 @@ Inverse depths are separate (Schur-eliminated), one per landmark slot.
 
 from __future__ import annotations
 
-from typing import NamedTuple, Optional
+from typing import Callable, NamedTuple, Optional
 
 import torch
 
@@ -668,43 +668,103 @@ def normal_equations_fast(state: WindowState, meas: WindowMeasurements,
                           cfg: WindowConfig, anchor_ref=None):
     """Normal equations for the LM hot loop, (H, g, H_lp, h_ll, g_l), of a
     window without a relocalization frame or td estimation, by `lm_solve`'s
-    route (`_normal_eq_route`): on CUDA tensors (float32 or float64) one
-    launch of the hand-written kernel, which linearizes every factor in
-    registers; on CPU tensors the plain version."""
+    route (`_lm_route`): on CUDA tensors (float32 or float64) one launch of
+    the hand-written kernel, which linearizes every factor in registers; on
+    CPU tensors the plain version."""
     if anchor_ref is None:
         anchor_ref = (state.p[..., 0, :], state.q[..., 0, :])
-    return _normal_eq_route(state, meas, cfg, anchor_ref)(state)
+    return _lm_route(state, meas, cfg, anchor_ref).normal_equations(state)
 
 
-def _normal_eq_route(state: WindowState, meas: WindowMeasurements,
-                     cfg: WindowConfig, anchor_ref):
-    """The normal equations of a solve's LM iterations as a function of the
-    iterate; the one place that chooses how they are built. A relocalization
-    frame or td estimation: `linearize`'s dense rows, on any device (the
-    kernel has neither the relocalization rows nor a td column; no
-    configuration of the main paths estimates td). CPU tensors: the plain
-    version. CUDA tensors: one launch of `hopper_kernels.normal_eq_fused` an
-    iteration (`stamps` as it takes them), what it reads that does not
-    change over the solve made here, once."""
+class LmRoute(NamedTuple):
+    """How one solve takes its LM iterations, each a function of the iterate
+    (`_lm_route` chooses them together)."""
+
+    normal_equations: Callable  # st → (H, g, H_lp, h_ll, g_l)
+    cost: Callable              # st → robust cost [...] (float64)
+    # (st, dx, d_rho, pred, λ, cost) → (next iterate, λ, cost, ok): the
+    # cost phase of an iteration, `_lm_cost_plain`'s contract
+    cost_step: Callable
+    diagnostics: Callable       # st → (imu_chi2 [...], prior_chi2 [...])
+
+
+def _lm_route(state: WindowState, meas: WindowMeasurements,
+              cfg: WindowConfig, anchor_ref) -> LmRoute:
+    """The one place that chooses how a solve builds its normal equations
+    and takes its cost phases, by what it can observe. A relocalization
+    frame or td estimation: `linearize`'s dense rows and the plain cost, on
+    any device (the kernels have neither the relocalization rows nor a td
+    column; no configuration of the main paths estimates td). CPU tensors:
+    the plain versions. CUDA tensors: one launch of
+    `hopper_kernels.normal_eq_fused` and one of `hopper_kernels.lm_cost_fused`
+    an iteration, and two of the latter a solve (the cost at the start, the
+    diagnostics at the end); what they read that does not change over the
+    solve is made here, once."""
     if meas.relo_pts is not None or cfg.estimate_td:
-        return lambda st: build_normal_equations(
-            *linearize(st, meas, cfg, anchor_ref)[:5], cfg)
-    if not state.p.is_cuda:
-        return lambda st: normal_equations_fast_plain(st, meas, cfg,
-                                                      anchor_ref)
-    shapes = hopper_kernels.normal_eq_inputs(cfg.nf, cfg.max_feats)
-    fixed = _kernel_fixed_inputs(state, meas, cfg, anchor_ref, shapes)
+        def normal_equations(st):
+            return build_normal_equations(
+                *linearize(st, meas, cfg, anchor_ref)[:5], cfg)
+    elif state.p.is_cuda:
+        return _kernel_route(state, meas, cfg, anchor_ref)
+    else:
+        def normal_equations(st):
+            return normal_equations_fast_plain(st, meas, cfg, anchor_ref)
 
-    def kernel(st, stamps=None):
-        batch = st.p.shape[:-2]
-        out = hopper_kernels.normal_eq_fused(
-            {**fixed, **{k: hopper_kernels.flat_batch(getattr(st, k), batch,
-                                                       shapes[k])
-                         for k in WindowState._fields if k in shapes}},
-            float(cfg.cauchy_scale) ** 2, float(cfg.anchor_weight) ** 0.5,
-            cfg.estimate_extrinsic, stamps)
-        return hopper_kernels.unflat_batch(out, batch)
-    return kernel
+    def cost_step(st, dx, d_rho, pred, lam, cost):
+        return _lm_cost_plain(st, dx, d_rho, pred, lam, cost, meas, cfg,
+                              anchor_ref)
+    return LmRoute(
+        normal_equations=normal_equations,
+        cost=lambda st: robust_cost(st, meas, cfg, anchor_ref),
+        cost_step=cost_step,
+        diagnostics=lambda st: (imu_chi2_mean(st, meas, cfg),
+                                prior_chi2(st, meas, cfg)))
+
+
+def _kernel_route(state: WindowState, meas: WindowMeasurements,
+                  cfg: WindowConfig, anchor_ref) -> LmRoute:
+    """`_lm_route`'s choice for CUDA tensors: both kernels read the same
+    solve-constant inputs, packed once (`_kernel_fixed_inputs`), and the
+    iterate's leaves; the cost kernel writes the next iterate already in
+    their [B, ...] layout. `normal_equations` takes `stamps` as
+    `hopper_kernels.normal_eq_fused` does."""
+    hk = hopper_kernels
+    shapes = hk.normal_eq_inputs(cfg.nf, cfg.max_feats)
+    fixed = _kernel_fixed_inputs(state, meas, cfg, anchor_ref, shapes)
+    batch = state.p.shape[:-2]
+    leaves = [k for k in WindowState._fields if k in shapes]
+    c2, sqrt_aw = float(cfg.cauchy_scale) ** 2, float(cfg.anchor_weight) ** 0.5
+
+    def inputs(st):
+        return {**fixed, **{k: hk.flat_batch(getattr(st, k), batch, shapes[k])
+                            for k in leaves}}
+
+    def cost_kernel(st, mode, step=(), diagnostics=False):
+        out = hk.lm_cost_fused(
+            inputs(st), mode, c2, sqrt_aw, cfg.min_inv_depth,
+            cfg.lm_strategy == "nielsen", cfg.lm_lambda_up,
+            cfg.lm_lambda_down, step, diagnostics)
+        return dict(zip(out, hk.unflat_batch(tuple(out.values()), batch)))
+
+    def normal_equations(st, stamps=None):
+        return hk.unflat_batch(hk.normal_eq_fused(
+            inputs(st), c2, sqrt_aw, cfg.estimate_extrinsic, stamps), batch)
+
+    def cost_step(st, dx, d_rho, pred, lam, cost):
+        out = cost_kernel(st, "step", (
+            hk.flat_batch(dx, batch, (cfg.dim,)),
+            hk.flat_batch(d_rho, batch, shapes["inv_depth"]),
+            hk.flat_batch(pred, batch, ()), hk.flat_batch(lam, batch, ()),
+            hk.flat_batch(cost, batch, ())))
+        return (WindowState(**{k: out[k] for k in leaves}), out["lam"],
+                out["cost"], out["ok"])
+
+    def diagnostics(st):
+        out = cost_kernel(st, "evaluate", diagnostics=True)
+        return out["imu_chi2"], out["prior_chi2"]
+    return LmRoute(normal_equations=normal_equations,
+                   cost=lambda st: cost_kernel(st, "evaluate")["cost"],
+                   cost_step=cost_step, diagnostics=diagnostics)
 
 
 def _kernel_fixed_inputs(state: WindowState, meas: WindowMeasurements,
@@ -880,6 +940,45 @@ def _expand_like(flag: Tensor, leaf: Tensor) -> Tensor:
     return flag.reshape(flag.shape + (1,) * (leaf.dim() - flag.dim()))
 
 
+def _lm_cost_plain(st: WindowState, dx: Tensor, d_rho: Tensor, pred: Tensor,
+                   lam: Tensor, cost: Tensor, meas: WindowMeasurements,
+                   cfg: WindowConfig, anchor_ref):
+    """The cost phase of one LM iteration in plain PyTorch, the path of CPU
+    tensors and the yardstick of `hopper_kernels.lm_cost_fused`: the step
+    sanitized, the candidate retracted, its robust cost, the accept / reject
+    decision, the damping's update, the next iterate (its quaternions
+    renormalised). Returns (next iterate, λ, cost, ok)."""
+    dtype = st.p.dtype
+    # a failed factorization (possible in f32 when λ underflows the
+    # representable curvature) yields NaN; 0·NaN = NaN would pass the
+    # branchless blend below, so sanitize the step and reject it
+    finite = (torch.isfinite(dx).all(dim=-1)
+              & torch.isfinite(d_rho).all(dim=-1)
+              & torch.isfinite(pred))
+    dx = torch.where(torch.isfinite(dx), dx, torch.zeros_like(dx))
+    d_rho = torch.where(torch.isfinite(d_rho), d_rho, torch.zeros_like(d_rho))
+    cand = retract(st, dx, d_rho, cfg)
+    new_cost = robust_cost(cand, meas, cfg, anchor_ref)
+    drop = cost - new_cost
+    ok = (new_cost < cost) & (pred > 0) & finite
+    rho = (drop / torch.clamp(pred, min=1e-30)).to(lam.dtype)
+    okf = ok.to(dtype)
+    st_next = tree_map(
+        lambda a, b: _expand_like(okf, a) * b
+        + (1.0 - _expand_like(okf, a)) * a, st, cand)
+    st_next = st_next._replace(q=lie.quat_normalize(st_next.q),
+                               qic=lie.quat_normalize(st_next.qic))
+    if cfg.lm_strategy == "nielsen":
+        shrink = torch.clamp(1.0 - (2.0 * rho - 1.0) ** 3, min=1.0 / 3.0)
+        lam_next = torch.where(ok, lam * shrink, lam * 2.0)
+    else:
+        lam_next = torch.where(ok, lam * cfg.lm_lambda_down,
+                               lam * cfg.lm_lambda_up)
+    lam_next = torch.clamp(lam_next, 1e-12, 1e8)
+    cost_next = torch.where(ok, new_cost, cost)
+    return st_next, lam_next, cost_next, ok
+
+
 def lm_solve(state: WindowState, meas: WindowMeasurements, cfg: WindowConfig,
              device="cuda"):
     """Fixed-iteration branchless Levenberg-Marquardt over a scenario batch.
@@ -889,14 +988,17 @@ def lm_solve(state: WindowState, meas: WindowMeasurements, cfg: WindowConfig,
     λ, cost and the accept/reject decision are per scenario; nothing inside
     the loop synchronises with the host. With `cfg.fused_schur` the linear
     solve of every iteration is ONE launch of the fused Schur kernel over the
-    whole batch (float32 only). `_normal_eq_route` chooses how the normal
-    equations are built, once a solve: on a CUDA device one launch of the
-    hand-written kernel an iteration, whose solve-constant inputs it makes
-    before the loop; the plain version on the CPU; the dense rows of
-    `linearize` on any device for a window with a relocalization frame or a
-    configuration that estimates td. `device` is where the solve runs: the
-    inputs are moved there, and a CUDA device that is not present raises.
-    Returns (state, diagnostics dict of per-scenario tensors).
+    whole batch (float32 only). `_lm_route` chooses, once a solve, how the
+    normal equations are built and how the cost phase runs: on a CUDA device
+    one launch of each hand-written kernel an iteration (and two cost
+    launches a solve: the cost at the start, the diagnostics at the end),
+    their solve-constant inputs made before the loop, and no host
+    synchronisation in the solve; the plain versions on the CPU; the dense
+    rows of `linearize` and the plain cost on any device for a window with a
+    relocalization frame or a configuration that estimates td. `device` is
+    where the solve runs: the inputs are moved there, and a CUDA device that
+    is not present raises. Returns (state, diagnostics dict of per-scenario
+    tensors).
     """
     device = torch.device(device)
     state, meas = tree_to(state, device), tree_to(meas, device)
@@ -911,11 +1013,11 @@ def _lm_solve(state, meas, cfg):
     dtype, dev = state.p.dtype, state.p.device
     D, F = cfg.dim, cfg.max_feats
 
-    normal_equations = _normal_eq_route(state, meas, cfg, anchor_ref)
+    route = _lm_route(state, meas, cfg, anchor_ref)
 
     def body(st, lam, cost):
         with span("lm.normal_equations"):
-            H, g, H_lp, h_ll, g_l = normal_equations(st)
+            H, g, H_lp, h_ll, g_l = route.normal_equations(st)
         with span("lm.schur"):
             if cfg.fused_schur:
                 dx, d_rho, pred = hopper_kernels.schur_solve_fused(
@@ -928,42 +1030,14 @@ def _lm_solve(state, meas, cfg):
             else:
                 dx, d_rho, pred = schur_solve(H, g, H_lp, h_ll, g_l, lam, cfg)
         with span("lm.cost"):
-            # a failed factorization (possible in f32 when λ underflows the
-            # representable curvature) yields NaN; 0·NaN = NaN would pass the
-            # branchless blend below, so sanitize the step and reject it
-            finite = (torch.isfinite(dx).all(dim=-1)
-                      & torch.isfinite(d_rho).all(dim=-1)
-                      & torch.isfinite(pred))
-            dx = torch.where(torch.isfinite(dx), dx, torch.zeros_like(dx))
-            d_rho = torch.where(torch.isfinite(d_rho), d_rho,
-                                torch.zeros_like(d_rho))
-            cand = retract(st, dx, d_rho, cfg)
-            new_cost = robust_cost(cand, meas, cfg, anchor_ref)
-            drop = cost - new_cost
-            ok = (new_cost < cost) & (pred > 0) & finite
-            rho = (drop / torch.clamp(pred, min=1e-30)).to(lam.dtype)
-            okf = ok.to(dtype)
-            st_next = tree_map(
-                lambda a, b: _expand_like(okf, a) * b
-                + (1.0 - _expand_like(okf, a)) * a, st, cand)
-            st_next = st_next._replace(q=lie.quat_normalize(st_next.q),
-                                       qic=lie.quat_normalize(st_next.qic))
-            if cfg.lm_strategy == "nielsen":
-                shrink = torch.clamp(1.0 - (2.0 * rho - 1.0) ** 3,
-                                     min=1.0 / 3.0)
-                lam_next = torch.where(ok, lam * shrink, lam * 2.0)
-            else:
-                lam_next = torch.where(ok, lam * cfg.lm_lambda_down,
-                                       lam * cfg.lm_lambda_up)
-            lam_next = torch.clamp(lam_next, 1e-12, 1e8)
-            cost_next = torch.where(ok, new_cost, cost)
-        return st_next, lam_next, cost_next
+            st, lam, cost, _ = route.cost_step(st, dx, d_rho, pred, lam, cost)
+        return st, lam, cost
 
     lam = torch.full(batch, cfg.lm_lambda_init, dtype=dtype, device=dev)
-    cost0 = robust_cost(state, meas, cfg, anchor_ref)
+    cost0 = route.cost(state)
     st, cost = state, cost0
     for _ in range(cfg.iters):
         st, lam, cost = body(st, lam, cost)
+    imu_chi2, prior = route.diagnostics(st)
     return st, {"cost0": cost0, "cost": cost, "lambda": lam,
-                "imu_chi2": imu_chi2_mean(st, meas, cfg),
-                "prior_chi2": prior_chi2(st, meas, cfg)}
+                "imu_chi2": imu_chi2, "prior_chi2": prior}

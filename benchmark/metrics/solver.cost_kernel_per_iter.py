@@ -1,0 +1,14 @@
+"""Launches of the cost phase's kernel (trace kernels whose name holds
+`lm_cost_fused`) per LM iteration of the traced batched `lm_solve`s: 1.25
+where each iteration's cost phase is one launch and the solve's cost at the
+start and diagnostics at the end one each ((8 + 2) / 8), 0 where the program
+takes the cost phase otherwise."""
+
+KERNEL = "lm_cost_fused"
+
+
+def read(ctx):
+    if ctx.trace is None or not ctx.trace.spans:
+        return None
+    n = sum(1 for name, _, _ in ctx.trace.kernels if KERNEL in name)
+    return n / (ctx.trace.spans * ctx.counters["iters"])

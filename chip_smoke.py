@@ -425,13 +425,17 @@ def record_called_shapes(hk):
         "normal_eq_fused": lambda ins, *_, **__: (
             ins["p"].shape[0], ins["p"].shape[1] - 1,
             ins["inv_depth"].shape[1], str(ins["p"].dtype).split(".")[-1]),
+        "lm_cost_fused": lambda ins, *_, **__: (
+            ins["p"].shape[0], ins["p"].shape[1] - 1,
+            ins["inv_depth"].shape[1], str(ins["p"].dtype).split(".")[-1]),
     }
     saved = {name: getattr(hk, name) for name in shape_of}
     for name, shape in shape_of.items():
         CALLED_SHAPES[name] = set()
 
         def recorded(*args, _fn=saved[name], _name=name, _shape=shape, **kw):
-            lead = args[0]["p"] if _name == "normal_eq_fused" else args[0]
+            lead = args[0]["p"] if _name in ("normal_eq_fused",
+                                             "lm_cost_fused") else args[0]
             if lead.is_cuda:
                 CALLED_SHAPES[_name].add(_shape(*args, **kw))
             return _fn(*args, **kw)
@@ -464,17 +468,21 @@ def check_called_shapes(hk):
               for key in sorted(CALLED_SHAPES["preint_scan"])]
     ne = [dict(zip(("B", "window", "F", "dtype"), key), **ne_agrees(*key))
           for key in sorted(CALLED_SHAPES["normal_eq_fused"])]
-    return {"plain_loader": plain, "fused_loader": fused}, schur, preint, ne
+    lm = [dict(zip(("B", "window", "F", "dtype"), key),
+               **lm_cost_agrees(*key))
+          for key in sorted(CALLED_SHAPES["lm_cost_fused"])]
+    return ({"plain_loader": plain, "fused_loader": fused}, schur, preint, ne,
+            lm)
 
 
-# the launches of the preintegration kernel and of the normal equations'
-# kernel are held apart from the other two's: they run wherever a path
+# the launches of the preintegration kernel and of the window solve's two
+# kernels are held apart from the other two's: they run wherever a path
 # preintegrates or solves on the card, in both types (the `vio` phase holds
 # their counts too)
 def solver_launches(counts: dict) -> dict:
     """The selector's and the Schur solve's kernels' launches of `counts`."""
     return {k: n for k, n in counts.items()
-            if k not in ("preint_scan", "normal_eq_fused")}
+            if k not in ("preint_scan", "normal_eq_fused", "lm_cost_fused")}
 
 
 def preint_work(B: int, N: int, real: int, with_cov: bool = True):
@@ -604,6 +612,94 @@ def ne_agrees(B: int, window: int, F: int, dtype: str) -> dict:
                 f"float64 plain version)")
     return {"max_rel_err_vs_f64_plain": kernel_err,
             "plain_max_rel_err_vs_f64_plain": plain_err}
+
+
+def lm_cost_work(B: int, window: int = 10, F: int = 128):
+    """(bytes, flop) of one step launch of `lm_cost_fused` on B scenarios,
+    float32: the iterate, the step and the solve-constant inputs read once
+    (the prior's J0 once, the anchor frames as int64, the cost as float64),
+    the next iterate, λ, the cost and ok written once; the flop counted from
+    the operations of the factors (a projection factor ~330: four rotations,
+    the divisions, the Cauchy cost's log1p; an IMU pair ~900 and its
+    whitening 2 x 15 x 15), the retraction (~100 a pose), J0's product
+    2 x D x D and the blend."""
+    NF, D, W = window + 1, 15 * (window + 1) + 13, window
+    state = 16 * NF + 8 + F
+    ins = state + D + F + 1 + 1 + 2 \
+        + W * (3 + 4 + 3 + 225 + 1 + 3 + 3 + 225 + 1) \
+        + F * NF * 4 + 2 * F + NF + D * D + D + 16 * NF + 8 + 2 + 8 + 2 * F
+    outs = state + 1 + 2 + 1
+    flops = F * NF * 330 + W * (900 + 2 * 15 * 15 + 30) + NF * 100 \
+        + 2 * D * D + 4 * state
+    return B * (ins + outs) * 4, B * flops
+
+
+def lm_cost_plain_step(cfg, st, ms):
+    """One LM step at `st` from the plain versions (normal equations, Schur
+    solve), float64 sums: (dx, d_rho, pred, λ, cost) for a cost phase, with
+    the step of scenario 1 (where there is one) poisoned by a NaN."""
+    from anticipated_vins_mono_torch.ops import window as win
+    ref = (st.p[..., 0, :], st.q[..., 0, :])
+    H, g, H_lp, h_ll, g_l = win.normal_equations_fast_plain(st, ms, cfg, ref)
+    lam = torch.full(st.p.shape[:-2], 1e-4, dtype=st.p.dtype,
+                     device=st.p.device)
+    dx, d_rho, pred = win.schur_solve(H, g, H_lp, h_ll, g_l, lam, cfg)
+    if dx.shape[0] > 1:
+        dx[1, 0] = float("nan")
+    return dx, d_rho, pred, lam, win.robust_cost(st, ms, cfg, ref)
+
+
+def lm_cost_agrees(B: int, window: int, F: int, dtype: str) -> dict:
+    """The cost phase's kernel (`window._lm_route`'s cost step) against its
+    plain version (`window._lm_cost_plain`) on the card, on B seeded
+    scenarios of `synthetic.window_batch`, one plain LM step from each
+    (scenario 1's poisoned by a NaN, which both must reject): the same
+    decisions, the next iterate bit for bit, λ bit for bit ("halving"), the
+    next cost within 1e-12 relative (float64: the same terms, another order
+    of the float64 sum) or, float32, at most 4 times as far from the float64
+    plain cost of the same candidate as the float32 plain cost is (the IMU,
+    prior and anchor terms' matrix products summed in another order).
+    Returns the largest relative distances, kernel and plain, to the
+    float64 plain cost."""
+    from anticipated_vins_mono_torch.ops import window as win
+    from anticipated_vins_mono_torch.utils.synthetic import window_batch
+    from anticipated_vins_mono_torch.utils.tree import tree_map
+    cfg = win.WindowConfig(window=window, max_feats=F)
+    st, ms = window_batch(cfg, B, seed=B + F + 1, device="cuda")
+    if dtype == "float32":
+        cast = lambda x: x.float() if x.is_floating_point() else x
+        st, ms = tree_map(cast, st), tree_map(cast, ms)
+    ref = (st.p[..., 0, :], st.q[..., 0, :])
+    step = lm_cost_plain_step(cfg, st, ms)
+    got = win._lm_route(st, ms, cfg, ref).cost_step(st, *step)
+    want = win._lm_cost_plain(st, *step, ms, cfg, ref)
+    ok = want[3]
+    clean = torch.where(torch.isfinite(step[0]), step[0],
+                        torch.zeros_like(step[0]))
+    cand = win.retract(st, clean, step[1], cfg)
+    f64 = lambda x: x.double() if x is not None and x.is_floating_point() \
+        else x
+    c64 = win.robust_cost(tree_map(f64, cand), tree_map(f64, ms), cfg,
+                          tuple(map(f64, ref)))
+    torch.cuda.synchronize()
+    ek = float(((got[2] - c64).abs() / c64.abs())[ok].max()) if ok.any() \
+        else 0.0
+    ep = float(((want[2] - c64).abs() / c64.abs())[ok].max()) if ok.any() \
+        else 0.0
+    same = (torch.equal(got[3], ok) and (B == 1 or not bool(ok[1]))
+            and all(torch.equal(getattr(got[0], k), getattr(want[0], k))
+                    for k in win.WindowState._fields[:9])
+            and torch.equal(got[1], want[1])
+            and torch.equal(got[2][~ok], want[2][~ok]))
+    close = ek <= 1e-12 if dtype == "float64" else ek <= 4 * ep + 1e-12
+    if not (same and close):
+        raise AssertionError(
+            f"lm_cost_fused disagrees at {(B, window, F, dtype)}: decisions "
+            f"and bits {same}, cost {ek} vs the plain version's {ep} "
+            f"(relative to the float64 plain cost)")
+    return {"max_rel_err_vs_f64_plain": ek,
+            "plain_max_rel_err_vs_f64_plain": ep,
+            "accepted": int(ok.sum())}
 
 
 # ----------------------------------------------------------------------------
@@ -795,8 +891,10 @@ def phase_kernels(hk):
     logdet["capstone_batch"] = logdet_capstone_batch(hk)
     preint = preint_kernel(hk)
     ne = ne_kernel(hk)
-    emit({"phase": "kernel_check", "checked": [logdet, schur, preint, ne]})
-    return logdet, schur, preint, ne
+    lm = lm_cost_kernel(hk)
+    emit({"phase": "kernel_check",
+          "checked": [logdet, schur, preint, ne, lm]})
+    return logdet, schur, preint, ne, lm
 
 
 def ne_kernel(hk):
@@ -806,7 +904,7 @@ def ne_kernel(hk):
     CUDA graph; timed graph-replayed at B = 1, 64 and 512 (float32, and
     float64 at 64) beside its bound, the plain version's time and one eager
     call's (the packing's host time included), with block 0's phase split:
-    `window._normal_eq_route`'s function, the fixed inputs made once."""
+    `window._lm_route`'s function, the fixed inputs made once."""
     from anticipated_vins_mono_torch.ops import window as win
     from anticipated_vins_mono_torch.utils.synthetic import window_batch
     from anticipated_vins_mono_torch.utils.tree import tree_map
@@ -820,10 +918,10 @@ def ne_kernel(hk):
     by_batch = {}
     for B in (1, 64, 512):
         st, ms = window_batch(cfg, B, seed=B, device="cuda")
-        route = win._normal_eq_route(st, ms, cfg, anchor_ref(st))
+        route = win._lm_route(st, ms, cfg, anchor_ref(st)).normal_equations
         f64_ms = kernel_ms(lambda: route(st)) if B == 64 else None
         st, ms = tree_map(cast, st), tree_map(cast, ms)
-        route = win._normal_eq_route(st, ms, cfg, anchor_ref(st))
+        route = win._lm_route(st, ms, cfg, anchor_ref(st)).normal_equations
         run = lambda: route(st)
         eager = run()
         if not all(torch.equal(a, b) for a, b in zip(run(), eager)):
@@ -858,6 +956,71 @@ def ne_kernel(hk):
         "ms": by_batch["b64"]["ms"], "by_batch": by_batch,
         "bound_note": "a block per scenario and the dual numbers' dependent "
                       "chains, not bytes or flop",
+    }
+
+
+def lm_cost_kernel(hk):
+    """The cost phase's kernel at the flagship window (D = 178, F = 128)
+    against its plain version at `lm_cost_agrees`' tolerances, B = 1 and 64,
+    both types; at B = 1, 64 and 512 (float32) its bits the same on a second
+    launch and from a replayed CUDA graph, its decisions and next iterate
+    the plain version's, timed graph-replayed beside its bound, one eager
+    call's time (the packing's host time included) and the plain version's
+    (eager: its gravity vector is a host copy, which a graph cannot hold):
+    `window._lm_route`'s cost step."""
+    from anticipated_vins_mono_torch.ops import window as win
+    from anticipated_vins_mono_torch.utils.synthetic import window_batch
+    from anticipated_vins_mono_torch.utils.tree import tree_map
+    checked = [dict(zip(("B", "window", "F", "dtype"), key),
+                    **lm_cost_agrees(*key))
+               for key in ((1, 10, 128, "float32"), (64, 10, 128, "float32"),
+                           (1, 10, 128, "float64"), (64, 10, 128, "float64"))]
+    cfg = win.WindowConfig(window=10, max_feats=128)
+    cast = lambda x: x.float() if x.is_floating_point() else x
+    by_batch = {}
+    for B in (1, 64, 512):
+        st, ms = window_batch(cfg, B, seed=B, device="cuda")
+        st, ms = tree_map(cast, st), tree_map(cast, ms)
+        ref = (st.p[..., 0, :], st.q[..., 0, :])
+        step = lm_cost_plain_step(cfg, st, ms)
+        route = win._lm_route(st, ms, cfg, ref)
+        run = lambda: route.cost_step(st, *step)
+        flat = lambda out: [getattr(out[0], k) for k in
+                            win.WindowState._fields[:9]] + list(out[1:])
+        eager = flat(run())
+        if not all(torch.equal(a, b) for a, b in zip(flat(run()), eager)):
+            raise AssertionError("lm_cost_fused: two launches differ")
+        if not all(torch.equal(a, b)
+                   for a, b in zip(flat(graph_replay(run)), eager)):
+            raise AssertionError("lm_cost_fused: graph replay differs from "
+                                 "eager")
+        plain = flat(win._lm_cost_plain(st, *step, ms, cfg, ref))
+        if not (all(torch.equal(a, b) for a, b in zip(eager[:10], plain[:10]))
+                and torch.equal(eager[11], plain[11])):
+            raise AssertionError("lm_cost_fused: the replayed step is not "
+                                 "the plain version's")
+        ms_ = kernel_ms(run, 20)
+        b_ms, b_by = bound(*lm_cost_work(B))
+        by_batch[f"b{B}"] = {
+            "ms": ms_, "eager_ms": cuda_ms(run, 10, 2),
+            "plain_ms": cuda_ms(lambda: win._lm_cost_plain(
+                st, *step, ms, cfg, ref), 3, 1),
+            "bound_ms": b_ms, "bound_by": b_by,
+            "accepted": int(eager[11].sum())}
+    return {
+        "name": "lm_cost_fused", "route": "cuda",
+        "source": "anticipated_vins_mono_torch/csrc/lm_cost_fused.cu",
+        "replaces": "no TPU kernel: XLA's robust_cost inside the lax.scan of "
+                    "anticipated_vins_mono_tpu/ops/window.py (lm_solve)",
+        "shape": {"B": 64, "window": 10, "F": 128, "dtype": "float32"},
+        "tolerance": "decisions, next iterate and halving's lambda exact; "
+                     "cost f32: 4x the plain version's distance to the f64 "
+                     "plain cost, f64: rtol 1e-12",
+        "checked": checked,
+        "max_rel_err": max(c["max_rel_err_vs_f64_plain"] for c in checked
+                           if c["dtype"] == "float32"),
+        "ms": by_batch["b64"]["ms"], "by_batch": by_batch,
+        "bound_note": "the prior's J0 read dominates the bytes",
     }
 
 
@@ -1110,11 +1273,13 @@ def drive_vio(hk, pr, traj, dtype, n_steps=None):
 def check_vio_counts(tag, run, per_frame):
     """Exact launches: `per_frame` of the selector's and solver's kernels,
     the preintegration kernel once a frame (the measurements) and once more
-    a keyframe (`_margin_old`'s), and the normal equations' kernel once an
-    LM iteration (both types)."""
+    a keyframe (`_margin_old`'s), the normal equations' kernel once an LM
+    iteration and the cost phase's once an iteration and twice a solve
+    (both types)."""
     want = {name: n * run["frames"] for name, n in per_frame.items()}
     want["preint_scan"] = run["frames"] + run["keyframes"]
     want["normal_eq_fused"] = run["iters"] * run["frames"]
+    want["lm_cost_fused"] = (run["iters"] + 2) * run["frames"]
     if run["counts"] != want:
         raise AssertionError(f"{tag}: launched {run['counts']}, wanted {want}")
 
@@ -2603,7 +2768,7 @@ def main() -> int:
     emit({"phase": "device", "kind": kind, "nvidia_smi": smi,
           "torch": torch.__version__, "cuda": torch.version.cuda})
 
-    logdet_k, schur_k, preint_k, ne_k = phase_kernels(hk)
+    logdet_k, schur_k, preint_k, ne_k, lm_k = phase_kernels(hk)
     restore_wrappers = record_called_shapes(hk)
 
     # ------------------------------------------------------------ main path
@@ -2817,8 +2982,9 @@ def main() -> int:
     runs_on = {"logdet_psd_batched": set(launches) - {"loop", "curve"},
                "schur_solve_fused": set(launches),
                "preint_scan": {"vio"},
-               "normal_eq_fused": set(launches)}
-    for k in (logdet_k, schur_k, preint_k, ne_k):
+               "normal_eq_fused": set(launches),
+               "lm_cost_fused": set(launches)}
+    for k in (logdet_k, schur_k, preint_k, ne_k, lm_k):
         k["launches_by_path"] = {path: c[k["name"]]
                                  for path, c in launches.items()}
         if min(k["launches_by_path"][p] for p in runs_on[k["name"]]) < 1:
@@ -2826,8 +2992,8 @@ def main() -> int:
         k["launches"] = sum(k["launches_by_path"].values())
     restore_wrappers()
     (logdet_k["called_shapes"], schur_k["called_shapes"],
-     preint_k["called_shapes"], ne_k["called_shapes"]) = \
-        check_called_shapes(hk)
+     preint_k["called_shapes"], ne_k["called_shapes"],
+     lm_k["called_shapes"]) = check_called_shapes(hk)
     logdet_k["max_abs_err"] = max(
         [logdet_k["max_abs_err"], logdet_k["capstone_batch"]["max_abs_err"]]
         + [c["max_abs_err"] for loader in logdet_k["called_shapes"].values()
@@ -2844,8 +3010,12 @@ def main() -> int:
         [ne_k["max_rel_err"]]
         + [c["max_rel_err_vs_f64_plain"] for c in ne_k["called_shapes"]
            if c["dtype"] == "float32"])
+    lm_k["max_rel_err"] = max(
+        [lm_k["max_rel_err"]]
+        + [c["max_rel_err_vs_f64_plain"] for c in lm_k["called_shapes"]
+           if c["dtype"] == "float32"])
 
-    emit({"kernels": [logdet_k, schur_k, preint_k, ne_k]})
+    emit({"kernels": [logdet_k, schur_k, preint_k, ne_k, lm_k]})
     emit({"phase": "done", "seconds": round(time.perf_counter() - t_start, 1)})
     print(smi, flush=True)
     emit({"ok": True, "device": {"platform": "gpu", "kind": kind,

@@ -341,15 +341,20 @@ def _launcher_inputs(kernel):
     if kernel == "preint_scan":
         shapes = [(2, 8), (2, 8, 3), (2, 8, 3)] + [(2, 3)] * 4
         return [torch.zeros(s) for s in shapes] + [[1e-4] * 18, 0.005], {}
+    shapes = (hk.normal_eq_inputs if kernel == "normal_eq_fused"
+              else hk.lm_cost_inputs)(4, 12)
     inputs = {k: torch.zeros((2,) + s, dtype=torch.int64 if k == "anchor"
                              else torch.float32)
-              for k, s in hk.normal_eq_inputs(4, 12).items()}
+              for k, s in shapes.items()}
+    if kernel == "lm_cost_fused":
+        return [inputs, "evaluate", 1.0, 31.6, 0.01, False, 4.0, 0.5], {}
     return [inputs, 1.0, 31.6, True], {}
 
 
-@pytest.mark.parametrize("kernel", ["preint_scan", "normal_eq_fused"])
+@pytest.mark.parametrize("kernel", ["preint_scan", "normal_eq_fused",
+                                    "lm_cost_fused"])
 def test_launchers_take_cuda_tensors_only(kernel):
-    """The launchers of the two kernels with no Pallas counterpart have no
+    """The launchers of the kernels with no Pallas counterpart have no
     CPU path: well-formed CPU tensors raise before anything is built or
     counted (the op that owns the types takes the plain version there)."""
     args, kw = _launcher_inputs(kernel)

@@ -1,6 +1,6 @@
 """The normal equations' kernel (`csrc/normal_eq_fused.cu`, launcher
 `hopper_kernels.normal_eq_fused`, route and packing
-`window._normal_eq_route`) and its plain version,
+`window._lm_route`) and its plain version,
 `window.normal_equations_fast_plain`.
 
 On the CPU: `normal_equations_fast` and the route are the plain version and
@@ -52,7 +52,7 @@ def test_wrapper_on_cpu_takes_the_plain_version_and_counts_no_launch(
     st, ms = _problem(SMALL, 2, dtype=dtype)
     hk.reset_launch_counts()
     ref = win.normal_equations_fast_plain(st, ms, SMALL)
-    route = win._normal_eq_route(st, ms, SMALL, _anchor_ref(st))
+    route = win._lm_route(st, ms, SMALL, _anchor_ref(st)).normal_equations
     for got in (route(st), win.normal_equations_fast(st, ms, SMALL)):
         assert all(torch.equal(a, b) for a, b in zip(got, ref))
     assert hk.launch_counts["normal_eq_fused"] == 0
@@ -85,7 +85,7 @@ def test_lm_solve_routes_td_estimation_to_the_dense_rows(monkeypatch,
     want = (win.build_normal_equations(*win.linearize(st, ms, cfg, ref)[:5],
                                        cfg) if estimate_td else
             win.normal_equations_fast_plain(st, ms, cfg, ref))
-    got = win._normal_eq_route(st, ms, cfg, ref)(st)
+    got = win._lm_route(st, ms, cfg, ref).normal_equations(st)
     assert all(torch.equal(a, b) for a, b in zip(got, want))
     calls = {"route": 0, "normal_equations_fast_plain": 0, "linearize": 0,
              "_kernel_fixed_inputs": 0}
@@ -96,8 +96,7 @@ def test_lm_solve_routes_td_estimation_to_the_dense_rows(monkeypatch,
             return fn(*a, **kw)
         return wrapped
 
-    monkeypatch.setattr(win, "_normal_eq_route",
-                        count("route", win._normal_eq_route))
+    monkeypatch.setattr(win, "_lm_route", count("route", win._lm_route))
     for name in list(calls)[1:]:
         monkeypatch.setattr(win, name, count(name, getattr(win, name)))
     out, diag = win.lm_solve(st, ms, cfg, device="cpu")
@@ -182,7 +181,7 @@ def test_kernel_is_deterministic_and_takes_fixed_inputs(dtype):
     (`normal_equations_fast`)."""
     _needs_card()
     st, ms = _problem(FLAGSHIP, 64, device="cuda", dtype=dtype)
-    route = win._normal_eq_route(st, ms, FLAGSHIP, _anchor_ref(st))
+    route = win._lm_route(st, ms, FLAGSHIP, _anchor_ref(st)).normal_equations
     first = win.normal_equations_fast(st, ms, FLAGSHIP)
     for again in (route(st), route(st),
                   win.normal_equations_fast(st, ms, FLAGSHIP)):
@@ -215,9 +214,12 @@ def test_lm_solve_takes_the_same_steps_as_the_plain_version(monkeypatch):
     hk.reset_launch_counts()
     out_k, diag_k = win.lm_solve(st, ms, cfg)
     assert hk.launch_counts["normal_eq_fused"] == cfg.iters
-    plain = lambda state, meas, c, anchor_ref: lambda s: \
-        win.normal_equations_fast_plain(s, meas, c, anchor_ref)
-    monkeypatch.setattr(win, "_normal_eq_route", plain)
+    real = win._lm_route
+    plain = lambda state, meas, c, anchor_ref: real(
+        state, meas, c, anchor_ref)._replace(
+        normal_equations=lambda s: win.normal_equations_fast_plain(
+            s, meas, c, anchor_ref))
+    monkeypatch.setattr(win, "_lm_route", plain)
     lams.append([])
     out_p, diag_p = win.lm_solve(st, ms, cfg)
     out_64, _ = win.lm_solve(st64, ms64, FLAGSHIP)
