@@ -26,7 +26,10 @@
 //             diagnostics (`window.imu_chi2_mean`, `window.prior_chi2`);
 //   retract   the candidate and its cost, no decision (for the tests).
 // Nothing is written into the inputs: every output is a tensor of its own,
-// in the launchers' [B, ...] layout.
+// in the launchers' [B, ...] layout. A solve that estimates the time offset td
+// takes the second instance, `lm_cost_fused_td_kernel`, whose projection
+// factors shift each observation along its image velocity by (td - td_k) +
+// TR / ROW * row at x's td first (`factors.projection_td_residual`).
 //
 // The cost is `window._cost_terms` summed: each projection factor's Cauchy
 // cost with `feat_w` and the validity mask, each IMU pair's whitened
@@ -102,6 +105,10 @@ struct Args {
   T *o_imu_chi2, *o_prior_chi2;
   int nf, nfeat, mode, pred_f64, nielsen;
   double c2, sqrt_aw, min_inv_depth, lam_up, lam_down;
+  // the td instance's: image velocities [F,NF,2], td at each frame's capture
+  // [NF] (may be null: 0), TR / ROW, fy and cy - ROW / 2 of the row recovery
+  const T *vel, *td_obs;
+  double tr_over_row, row_fy, row_c0;
 };
 
 // A state in shared memory: p [NF,3], q [NF,4], v, ba, bg [NF,3], tic [3],
@@ -198,9 +205,9 @@ __device__ void rot_boxminus(const T* q, const T* lq, T scale, T* out) {
   for (int c = 0; c < 3; ++c) out[c] = (scale * qrel[1 + c]) * sgn;
 }
 
-template <typename T>
-__global__ void __launch_bounds__(kThreads)
-lm_cost_fused_kernel(const __grid_constant__ Args<T> a) {
+// The kernel's body; TD: the instance that estimates the time offset
+template <bool TD, typename T>
+__device__ __forceinline__ void lm_cost_body(const Args<T>& a) {
   extern __shared__ __align__(16) unsigned char smem_raw[];
   double* wsum = reinterpret_cast<double*>(smem_raw);
   T* sm = reinterpret_cast<T*>(wsum + kWarps);
@@ -375,9 +382,26 @@ lm_cost_fused_kernel(const __grid_constant__ Args<T> a) {
       int af = static_cast<int>(a.anchor[b * F + f]);
       af = af < 0 ? 0 : af >= nf ? nf - 1 : af;
       const T* pt = a.pts + (b * F + f) * nf * 3;
+      const T* pt_i = pt + 3 * af;
+      const T* pt_j = pt + 3 * j;
+      T sh_i[3], sh_j[3];
+      if constexpr (TD) {
+        TdObs<T> o;
+        o.tr_over_row = static_cast<T>(a.tr_over_row);
+        o.row_fy = static_cast<T>(a.row_fy);
+        o.row_c0 = static_cast<T>(a.row_c0);
+        o.vel = a.vel + ((b * F + f) * nf + af) * 2;
+        o.td_k = a.td_obs ? a.td_obs[b * nf + af] : T(0);
+        td_shift(pt_i, o, x.td[0], sh_i);
+        o.vel = a.vel + ((b * F + f) * nf + j) * 2;
+        o.td_k = a.td_obs ? a.td_obs[b * nf + j] : T(0);
+        td_shift(pt_j, o, x.td[0], sh_j);
+        pt_i = sh_i;
+        pt_j = sh_j;
+      }
       T r[2];
       proj_residual<Torch>(x.p + 3 * af, x.q + 4 * af, x.p + 3 * j, x.q + 4 * j,
-                           x.tic, x.qic, x.inv[f], pt + 3 * af, pt + 3 * j, r);
+                           x.tic, x.qic, x.inv[f], pt_i, pt_j, r);
       const T* mk = a.mask + (b * F + f) * nf;
       const T valid = ((mk[af] * mk[j]) * a.feat_valid[b * F + f]) *
                       (j != af ? T(1) : T(0));
@@ -480,19 +504,38 @@ lm_cost_fused_kernel(const __grid_constant__ Args<T> a) {
 }
 
 template <typename T>
+__global__ void __launch_bounds__(kThreads)
+lm_cost_fused_kernel(const __grid_constant__ Args<T> a) {
+  lm_cost_body<false>(a);
+}
+
+template <typename T>
+__global__ void __launch_bounds__(kThreads)
+lm_cost_fused_td_kernel(const __grid_constant__ Args<T> a) {
+  lm_cost_body<true>(a);
+}
+
+template <typename T>
 int launch(const void* const* ptr, int batch, int nf, int nfeat, int mode,
            double c2, double sqrt_aw, double min_inv_depth, int nielsen,
-           double lam_up, double lam_down, int pred_f64, void* stream) {
+           double lam_up, double lam_down, int pred_f64,
+           const double* td_consts, void* stream) {
   Args<T> a;
+  const bool td = td_consts != nullptr;
   const T** in[] = {&a.p, &a.q, &a.v, &a.ba, &a.bg, &a.tic, &a.qic, &a.td,
                     &a.inv_depth, &a.pre_dp, &a.pre_dq, &a.pre_dv, &a.pre_J,
                     &a.pre_dt, &a.pre_ba, &a.pre_bg, &a.pre_S, &a.pre_valid,
                     &a.pts, &a.mask, &a.feat_valid, &a.feat_w, &a.zupt_w,
                     &a.J0, &a.r0, &a.lin_p, &a.lin_q, &a.lin_v, &a.lin_ba,
                     &a.lin_bg, &a.lin_tic, &a.lin_qic, &a.lin_td, &a.prior_w,
-                    &a.p_ref, &a.q_ref, &a.pin_rp};
-  constexpr int n_in = sizeof(in) / sizeof(in[0]);
+                    &a.p_ref, &a.q_ref, &a.pin_rp, &a.vel, &a.td_obs};
+  // the td instance's two inputs follow pin_rp
+  const int n_in = sizeof(in) / sizeof(in[0]) - (td ? 0 : 2);
   for (int i = 0; i < n_in; ++i) *in[i] = static_cast<const T*>(ptr[i]);
+  if (!td) a.vel = a.td_obs = nullptr;
+  a.tr_over_row = td ? td_consts[0] : 0.0;
+  a.row_fy = td ? td_consts[1] : 0.0;
+  a.row_c0 = td ? td_consts[2] : 0.0;
   int k = n_in;
   a.anchor = static_cast<const int64_t*>(ptr[k++]);
   a.dx = static_cast<const T*>(ptr[k++]);
@@ -520,21 +563,30 @@ int launch(const void* const* ptr, int batch, int nf, int nfeat, int mode,
   const size_t smem = smem_bytes(nf, nfeat, sizeof(T));
   if (nf < 2 || nf > 33 || mode < kEvaluate || mode > kRetract || smem > kMaxSmem)
     return static_cast<int>(cudaErrorInvalidValue);
-  lm_cost_fused_kernel<T><<<batch, kThreads, smem,
-                            static_cast<cudaStream_t>(stream)>>>(a);
+  if (td)
+    lm_cost_fused_td_kernel<T><<<batch, kThreads, smem,
+                                 static_cast<cudaStream_t>(stream)>>>(a);
+  else
+    lm_cost_fused_kernel<T><<<batch, kThreads, smem,
+                              static_cast<cudaStream_t>(stream)>>>(a);
   return static_cast<int>(cudaGetLastError());
 }
 
 }  // namespace
 
-// Loads both instances (float32, float64) now rather than at their first
-// launch inside a solve. Called once after the library is loaded; returns a
-// CUDA error code.
+// Loads the four instances (float32, float64; with and without td) now
+// rather than at their first launch inside a solve. Called once after the
+// library is loaded; returns a CUDA error code.
 extern "C" int avm_lm_cost_init() {
   cudaFuncAttributes attr;
-  cudaError_t err = cudaFuncGetAttributes(&attr, lm_cost_fused_kernel<float>);
-  if (err != cudaSuccess) return static_cast<int>(err);
-  return static_cast<int>(cudaFuncGetAttributes(&attr, lm_cost_fused_kernel<double>));
+  const cudaError_t errs[] = {
+      cudaFuncGetAttributes(&attr, lm_cost_fused_kernel<float>),
+      cudaFuncGetAttributes(&attr, lm_cost_fused_kernel<double>),
+      cudaFuncGetAttributes(&attr, lm_cost_fused_td_kernel<float>),
+      cudaFuncGetAttributes(&attr, lm_cost_fused_td_kernel<double>)};
+  for (cudaError_t err : errs)
+    if (err != cudaSuccess) return static_cast<int>(err);
+  return 0;
 }
 
 // The cost phase of `batch` scenarios of NF frames and `nfeat` landmark slots.
@@ -549,18 +601,21 @@ extern "C" int avm_lm_cost_init() {
 // pred (float64 if `pred_f64`, else float32). `mode`: 0 evaluate, 1 step, 2
 // retract. `c2`: the Cauchy scale squared; `sqrt_aw`: the square root of the
 // gauge anchor's weight; `nielsen`: the "nielsen" damping rule, else
-// "halving" by `lam_up` and `lam_down`. Launches on `stream`; returns
-// cudaGetLastError() (0 = launched).
+// "halving" by `lam_up` and `lam_down`; `td_consts`: null for a solve that
+// holds td, else (TR / ROW, fy, cy - ROW / 2) of the time offset's instance,
+// whose inputs vel and td_obs (may be 0) follow pin_rp in `ptr`. Launches on
+// `stream`; returns cudaGetLastError() (0 = launched).
 extern "C" int avm_lm_cost_fused(const void* const* ptr, int batch, int nf,
                                  int nfeat, int mode, double c2,
                                  double sqrt_aw, double min_inv_depth,
                                  int nielsen, double lam_up, double lam_down,
-                                 int pred_f64, int f64, void* stream) {
+                                 int pred_f64, int f64,
+                                 const double* td_consts, void* stream) {
   if (batch <= 0) return 0;
   return f64 ? launch<double>(ptr, batch, nf, nfeat, mode, c2, sqrt_aw,
                               min_inv_depth, nielsen, lam_up, lam_down,
-                              pred_f64, stream)
+                              pred_f64, td_consts, stream)
              : launch<float>(ptr, batch, nf, nfeat, mode, c2, sqrt_aw,
                              min_inv_depth, nielsen, lam_up, lam_down,
-                             pred_f64, stream);
+                             pred_f64, td_consts, stream);
 }

@@ -32,8 +32,14 @@
 //     H-block is constant over a solve and comes in as H0 (J_s^T J_s, formed
 //     once per solve by the caller);
 //   - H = (projection + IMU) + H0, g likewise, H_lp, h_ll, g_l.
-// The time offset's column gets no projection term: a solve that estimates td
-// takes the dense path (`window.linearize`).
+// A solve that estimates the camera-IMU time offset td (VINS-Mono's
+// `ProjectionTdFactor`, `factors.projection_td_residual`) takes the second
+// instance, `normal_eq_fused_td_kernel`: each observation is shifted along its
+// image velocity by (td - td_k) + TR / ROW * row before the same chain, and
+// a projection factor carries a 20th tangent column, td's, from a fourth
+// pass of one tangent; td's column of H joins the square the warps sum
+// (6NF + 7), its entries of g and H_lp likewise. TR / ROW is a number the
+// launch passes: a global shutter is TR = 0, not another build.
 //
 // Determinism: no atomics. Each of the block's eight warps takes landmarks in
 // a fixed order, two at a time (a lane a factor, its columns in registers),
@@ -68,10 +74,11 @@ using namespace avm;
 constexpr int kThreads = 256;
 constexpr int kWarps = kThreads / 32;
 // a projection factor's row in a lane's registers: 19 tangent columns
-// (anchor 0-5, frame 6-11, extrinsic 12-17, inverse depth 18), then the
-// residual
-constexpr int kCols = 20;
-constexpr int kRho = 18, kRes = 19;
+// (anchor 0-5, frame 6-11, extrinsic 12-17, inverse depth 18), with td
+// estimation td's (19), then the residual
+template <bool TD> constexpr int kCols = 20 + TD;
+template <bool TD> constexpr int kRes = 19 + TD;
+constexpr int kRho = 18, kTd = 19;
 // an IMU row in shared memory: 30 tangent columns (pose i 0-5, pose j 6-11,
 // speed-bias i 12-20, speed-bias j 21-29), then the residual
 constexpr int kImuCols = 31;
@@ -163,6 +170,10 @@ struct Args {
   int nf, nfeat, nw;
   T c2, sqrt_aw;
   int est_ext;
+  // the td instance's: image velocities [F,NF,2], td at each frame's capture
+  // [NF] (may be null: 0), TR / ROW, fy and cy - ROW / 2 of the row recovery
+  const T *vel, *td_obs;
+  T tr_over_row, row_fy, row_c0;
 };
 
 // Offsets (in elements of the working type) of the block's shared memory.
@@ -170,10 +181,10 @@ struct Layout {
   int fdat, dx, rp, gs, acc0, wacc, raw, imu, ip, total, npk, E;
 };
 
-__host__ __device__ inline Layout layout(int nf, int nw) {
+__host__ __device__ inline Layout layout(int nf, int nw, bool td) {
   Layout L;
   const int D = 15 * nf + 13;
-  L.E = 6 * nf + 6;
+  L.E = 6 * nf + 6 + td;
   L.npk = L.E * (L.E + 1) / 2;
   L.fdat = 0;
   L.dx = L.fdat + (nf + 1) * kFrame;
@@ -210,18 +221,38 @@ __device__ __forceinline__ int packed(int r, int c, int E) {
 }
 
 // One projection factor (f, j) of anchor frame af: its weighted tangent
-// columns and residual, `u` [2][kCols], in registers.
-template <typename T>
+// columns and residual, `u` [2][kCols], in registers. With TD the
+// observations are shifted by the time offset first (`td_shift`), and a
+// fourth pass carries td's tangent.
+template <bool TD, typename T>
 __device__ __forceinline__ void proj_factor(const Args<T>& a, size_t b,
                                             const T* fd, int f, int af, int j,
-                                            T (&u)[2][kCols]) {
+                                            T (&u)[2][kCols<TD>]) {
   const int nf = a.nf, F = a.nfeat;
   const T* fa = fd + af * kFrame;
   const T* fj = fd + j * kFrame;
   const T* fe = fd + nf * kFrame;
-  const T* pt_i = a.pts + ((b * F + f) * nf + af) * 3;
-  const T* pt_j = a.pts + ((b * F + f) * nf + j) * 3;
+  const T* obs_i = a.pts + ((b * F + f) * nf + af) * 3;
+  const T* obs_j = a.pts + ((b * F + f) * nf + j) * 3;
   const T rho = a.inv_depth[b * F + f];
+  TdObs<T> oi, oj;
+  T sh_i[3], sh_j[3];
+  const T* pt_i = obs_i;
+  const T* pt_j = obs_j;
+  if constexpr (TD) {
+    oi.vel = a.vel + ((b * F + f) * nf + af) * 2;
+    oj.vel = a.vel + ((b * F + f) * nf + j) * 2;
+    oi.td_k = a.td_obs ? a.td_obs[b * nf + af] : T(0);
+    oj.td_k = a.td_obs ? a.td_obs[b * nf + j] : T(0);
+    oi.tr_over_row = oj.tr_over_row = a.tr_over_row;
+    oi.row_fy = oj.row_fy = a.row_fy;
+    oi.row_c0 = oj.row_c0 = a.row_c0;
+    const T td = a.td[b];
+    td_shift(obs_i, oi, td, sh_i);
+    td_shift(obs_j, oj, td, sh_j);
+    pt_i = sh_i;
+    pt_j = sh_j;
+  }
   T r[2];
   proj_residual(fa, fa + 3, fj, fj + 3, fe, fe + 3, rho, pt_i, pt_j, r);
   // the Cauchy sqrt-weight, validity and feature weight
@@ -262,25 +293,35 @@ __device__ __forceinline__ void proj_factor(const Args<T>& a, size_t b,
       for (int k = 0; k < 6; ++k)
         u[m][12 + k] = a.est_ext ? rr[m].t[k] * w : T(0) * w;
   }
+  if constexpr (TD) {  // the time offset, through both observations
+    const Dual<T, 1> td = seed_lin<T, 1>(a.td[b], 0);
+    Dual<T, 1> di[3], dj[3], rr[2];
+    td_shift(obs_i, oi, td, di);
+    td_shift(obs_j, oj, td, dj);
+    proj_residual(fa, fa + 7, fj, fj + 7, fe, fe + 7, rho, di, dj, rr);
 #pragma unroll
-  for (int m = 0; m < 2; ++m) u[m][kRes] = r[m] * w;
+    for (int m = 0; m < 2; ++m) u[m][kTd] = rr[m].t[0] * w;
+  }
+#pragma unroll
+  for (int m = 0; m < 2; ++m) u[m][kRes<TD>] = r[m] * w;
 }
 
 // The sums a factor adds on its own: its frame j's columns against every
-// column of its rows (blocks (a, j), (j, j), (j, e), g_j and H_lp's frame
-// block), the two rows summed in order.
-template <typename T>
-__device__ __forceinline__ void frame_sums(const T (&u)[2][kCols], int af,
+// column of its rows (blocks (a, j), (j, j), (j, e), with TD (j, td), g_j and
+// H_lp's frame block), the two rows summed in order.
+template <bool TD, typename T>
+__device__ __forceinline__ void frame_sums(const T (&u)[2][kCols<TD>], int af,
                                            int j, int E, int P, T* acc,
                                            T* Hl) {
+  constexpr int n_add = 19 + TD;
   const int npk = E * (E + 1) / 2;
   auto dot = [&](int k, int l) { return u[0][k] * u[0][l] + u[1][k] * u[1][l]; };
   // a row k of the frame's columns at a time: its entries' old values are
   // all read before any is written, so the reads go out together
 #pragma unroll
   for (int k = 0; k < 6; ++k) {
-    int idx[19];
-    T add[19], old[19];
+    int idx[n_add];
+    T add[n_add], old[n_add];
 #pragma unroll
     for (int l = 0; l < 6; ++l) {
       idx[l] = packed(6 * af + k, 6 * j + l, E);
@@ -290,52 +331,61 @@ __device__ __forceinline__ void frame_sums(const T (&u)[2][kCols], int af,
       idx[12 + l] = packed(6 * j + k, P + l, E);
       add[12 + l] = dot(6 + k, 12 + l);
     }
-    idx[18] = npk + 6 * j + k;
-    add[18] = dot(6 + k, kRes);
+    if constexpr (TD) {
+      idx[18] = packed(6 * j + k, P + 6, E);
+      add[18] = dot(6 + k, kTd);
+    }
+    idx[n_add - 1] = npk + 6 * j + k;
+    add[n_add - 1] = dot(6 + k, kRes<TD>);
 #pragma unroll
-    for (int n = 0; n < 19; ++n)
+    for (int n = 0; n < n_add; ++n)
       if (n < 6 || n >= 6 + k) old[n] = acc[idx[n]];
 #pragma unroll
-    for (int n = 0; n < 19; ++n)
+    for (int n = 0; n < n_add; ++n)
       if (n < 6 || n >= 6 + k) acc[idx[n]] = old[n] + add[n];
     Hl[6 * j + k] = dot(kRho, 6 + k);
   }
 }
 
-// The 105 entries of the upper triangle of u u^T over a landmark's 14 shared
-// columns (anchor pose 0-5, extrinsic 6-11, inverse depth 12, residual 13),
-// which every factor of the landmark adds to: the e-th entry's (k, l)
+// The entries of the upper triangle of u u^T over a landmark's shared
+// columns (anchor pose 0-5, extrinsic 6-11, with TD td 12, then inverse depth
+// and residual; 14 + TD columns, 105 or 120 entries), which every factor of
+// the landmark adds to: the e-th entry's (k, l)
+template <bool TD> constexpr int kShared = 14 + TD;
+template <bool TD> constexpr int kGram = kShared<TD> * (kShared<TD> + 1) / 2;
+template <bool TD>
 __host__ __device__ constexpr int gram_k(int e) {
   int k = 0;
-  while (e >= 14 - k) {
-    e -= 14 - k;
+  while (e >= kShared<TD> - k) {
+    e -= kShared<TD> - k;
     ++k;
   }
   return k;
 }
+template <bool TD>
 __host__ __device__ constexpr int gram_l(int e) {
   int k = 0;
-  while (e >= 14 - k) {
-    e -= 14 - k;
+  while (e >= kShared<TD> - k) {
+    e -= kShared<TD> - k;
     ++k;
   }
   return k + e;
 }
 // a shared column's place among a factor's kCols
+template <bool TD>
 __host__ __device__ constexpr int gram_col(int k) {
-  return k < 6 ? k : k < 12 ? 6 + k : k == 12 ? kRho : kRes;
+  return k < 6 ? k : k < 12 ? 6 + k : TD && k == 12 ? kTd : k == 12 + TD ? kRho : kRes<TD>;
 }
-constexpr int kGram = 105;
 
 // v[i] = entry c0 + i of one factor's u u^T (0 past the last entry), the two
 // rows summed in order; every index a constant
-template <int c0, int i, typename T>
-__device__ __forceinline__ void gram_fill(const T (&u)[2][kCols], T (&v)[16]) {
+template <bool TD, int c0, int i, typename T>
+__device__ __forceinline__ void gram_fill(const T (&u)[2][kCols<TD>], T (&v)[16]) {
   if constexpr (i < 16) {
-    constexpr int e = c0 + i < kGram ? c0 + i : 0;
-    constexpr int k = gram_col(gram_k(e)), l = gram_col(gram_l(e));
+    constexpr int e = c0 + i < kGram<TD> ? c0 + i : 0;
+    constexpr int k = gram_col<TD>(gram_k<TD>(e)), l = gram_col<TD>(gram_l<TD>(e));
     v[i] = u[0][k] * u[0][l] + u[1][k] * u[1][l];
-    gram_fill<c0, i + 1>(u, v);
+    gram_fill<TD, c0, i + 1>(u, v);
   }
 }
 
@@ -353,26 +403,27 @@ __device__ __forceinline__ void halve(T (&v)[16], bool up) {
 }
 
 // Entry e of a landmark's u u^T summed over its factors, `s`, into the
-// warp's copy or the landmark's own outputs (H_lp's anchor and extrinsic
+// warp's copy or the landmark's own outputs (H_lp's anchor, extrinsic and td
 // blocks, h_ll, g_l: set by the first chunk of frames, added to by later ones)
-template <typename T>
+template <bool TD, typename T>
 __device__ __forceinline__ void gram_write(int e, T s, int af, int E, int P,
                                            int X, bool first, T* acc, T* Hl,
                                            T* hll, T* gl) {
+  constexpr int nc = 12 + TD;  // the shared columns that are columns of H
   const int npk = E * (E + 1) / 2;
-  const int k = gram_k(e), l = gram_l(e);
+  const int k = gram_k<TD>(e), l = gram_l<TD>(e);
   auto col = [&](int c) { return c < 6 ? 6 * af + c : P + c - 6; };
   auto set = [&](T* x) { *x = first ? s : *x + s; };
-  if (l < 12) {
+  if (l < nc) {
     const int idx = packed(col(k), col(l), E);
     acc[idx] = acc[idx] + s;
-  } else if (l == 12) {
+  } else if (l == nc) {
     if (k < 6) set(Hl + 6 * af + k);
-    else if (k < 12) set(Hl + X + k - 6);
+    else if (k < nc) set(Hl + X + k - 6);
     else set(hll);
-  } else if (k < 12) {
+  } else if (k < nc) {
     acc[npk + col(k)] = acc[npk + col(k)] + s;
-  } else if (k == 12) {
+  } else if (k == nc) {
     set(gl);
   }
 }
@@ -492,14 +543,14 @@ __device__ __forceinline__ int imu_col(int fr, int off, int w) {
   return off < 12 ? off + 6 * next : off + 9 * next;
 }
 
-template <typename T>
-__global__ void __launch_bounds__(kThreads, 1)
-normal_eq_fused_kernel(const __grid_constant__ Args<T> a) {
+// The kernel's body; TD: the instance that estimates the time offset
+template <bool TD, typename T>
+__device__ __forceinline__ void normal_eq_body(const Args<T>& a) {
   extern __shared__ __align__(16) unsigned char smem_raw[];
   T* sm = reinterpret_cast<T*>(smem_raw);
   const int nf = a.nf, F = a.nfeat, nw = a.nw, W = nf - 1;
-  const int P = 6 * nf, E = P + 6, X = 15 * nf, D = X + 13;
-  const Layout L = layout(nf, nw);
+  const int P = 6 * nf, E = P + 6 + TD, X = 15 * nf, D = X + 13;
+  const Layout L = layout(nf, nw, TD);
   const int npk = L.npk;
   const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
   const size_t b = blockIdx.x;
@@ -563,18 +614,18 @@ normal_eq_fused_kernel(const __grid_constant__ Args<T> a) {
       T* Hl = a.H_lp + (b * F + (f < F ? f : 0)) * D;
       if (f < F)
         for (int c = jl; c < D; c += 16)
-          if ((c >= P && c < X) || c >= X + 6) Hl[c] = T(0);
+          if ((c >= P && c < X) || c >= X + 6 + TD) Hl[c] = T(0);
       for (int j0 = 0; j0 < nf; j0 += 16) {
         const int j = j0 + jl;
         const bool on = f < F && j < nf && j != af;
-        T u[2][kCols];
-        if (f < F && j < nf) proj_factor(a, b, fd, f, af, j, u);
+        T u[2][kCols<TD>];
+        if (f < F && j < nf) proj_factor<TD>(a, b, fd, f, af, j, u);
 #pragma unroll
         for (int m = 0; m < 2; ++m)
 #pragma unroll
-          for (int k = 0; k < kCols; ++k) u[m][k] = on ? u[m][k] : T(0);
+          for (int k = 0; k < kCols<TD>; ++k) u[m][k] = on ? u[m][k] : T(0);
         for (int round = 0; round < 2; ++round) {
-          if (h == round && on) frame_sums(u, af, j, E, P, acc, Hl);
+          if (h == round && on) frame_sums<TD>(u, af, j, E, P, acc, Hl);
           __syncwarp();
         }
         auto chunk = [&](auto c0, T (&v)[16]) {
@@ -583,27 +634,31 @@ normal_eq_fused_kernel(const __grid_constant__ Args<T> a) {
           halve<2>(v, jl & 2);
           halve<1>(v, jl & 1);
           for (int round = 0; round < 2; ++round) {
-            if (h == round && f < F && c0 + jl < kGram)
-              gram_write(c0 + jl, v[0], af, E, P, X, j0 == 0, acc, Hl,
-                         a.h_ll + b * F + f, a.g_l + b * F + f);
+            if (h == round && f < F && c0 + jl < kGram<TD>)
+              gram_write<TD>(c0 + jl, v[0], af, E, P, X, j0 == 0, acc, Hl,
+                             a.h_ll + b * F + f, a.g_l + b * F + f);
             __syncwarp();
           }
         };
         T v[16];
-        gram_fill<0, 0>(u, v);
+        gram_fill<TD, 0, 0>(u, v);
         chunk(0, v);
-        gram_fill<16, 0>(u, v);
+        gram_fill<TD, 16, 0>(u, v);
         chunk(16, v);
-        gram_fill<32, 0>(u, v);
+        gram_fill<TD, 32, 0>(u, v);
         chunk(32, v);
-        gram_fill<48, 0>(u, v);
+        gram_fill<TD, 48, 0>(u, v);
         chunk(48, v);
-        gram_fill<64, 0>(u, v);
+        gram_fill<TD, 64, 0>(u, v);
         chunk(64, v);
-        gram_fill<80, 0>(u, v);
+        gram_fill<TD, 80, 0>(u, v);
         chunk(80, v);
-        gram_fill<96, 0>(u, v);
+        gram_fill<TD, 96, 0>(u, v);
         chunk(96, v);
+        if constexpr (TD) {
+          gram_fill<TD, 112, 0>(u, v);
+          chunk(112, v);
+        }
       }
     }
   }
@@ -704,7 +759,7 @@ normal_eq_fused_kernel(const __grid_constant__ Args<T> a) {
   T* H = a.H + b * D * D;
   const T* H0 = a.H0 + b * D * D;
   for (int r = warp; r < D; r += kWarps) {
-    const int ar = r < P ? r : (r >= X && r < X + 6) ? P + r - X : -1;
+    const int ar = r < P ? r : (r >= X && r < X + 6 + TD) ? P + r - X : -1;
     int fr, orr;
     const bool ri = imu_slot(r, nf, fr, orr);
     for (int c0 = lane; c0 < D; c0 += 8 * 32) {
@@ -715,7 +770,7 @@ normal_eq_fused_kernel(const __grid_constant__ Args<T> a) {
       for (int i = 0; i < 8; ++i) {
         const int c = c0 + 32 * i;
         if (c >= D) break;
-        const int ac = c < P ? c : (c >= X && c < X + 6) ? P + c - X : -1;
+        const int ac = c < P ? c : (c >= X && c < X + 6 + TD) ? P + c - X : -1;
         T s = ar >= 0 && ac >= 0 ? acc0[packed(ar, ac, E)] : T(0);
         int fc, oc;
         if (ri && imu_slot(c, nf, fc, oc)) {
@@ -729,7 +784,7 @@ normal_eq_fused_kernel(const __grid_constant__ Args<T> a) {
     }
   }
   for (int r = tid; r < D; r += kThreads) {
-    const int ar = r < P ? r : (r >= X && r < X + 6) ? P + r - X : -1;
+    const int ar = r < P ? r : (r >= X && r < X + 6 + TD) ? P + r - X : -1;
     T s = ar >= 0 ? acc0[npk + ar] : T(0);
     int fr, orr;
     if (imu_slot(r, nf, fr, orr))
@@ -743,27 +798,42 @@ normal_eq_fused_kernel(const __grid_constant__ Args<T> a) {
   }
 }
 
+template <typename T>
+__global__ void __launch_bounds__(kThreads, 1)
+normal_eq_fused_kernel(const __grid_constant__ Args<T> a) {
+  normal_eq_body<false>(a);
+}
+
+template <typename T>
+__global__ void __launch_bounds__(kThreads, 1)
+normal_eq_fused_td_kernel(const __grid_constant__ Args<T> a) {
+  normal_eq_body<true>(a);
+}
+
 // the number of warps that sum projection factors, the most (up to 8) whose
 // copies fit in a block's shared memory; 0 if not even one does
-int warps_for(int nf, int elem) {
+int warps_for(int nf, int elem, bool td) {
   for (int nw = kWarps; nw >= 1; --nw)
-    if (static_cast<long>(layout(nf, nw).total) * elem <= kMaxSmem) return nw;
+    if (static_cast<long>(layout(nf, nw, td).total) * elem <= kMaxSmem) return nw;
   return 0;
 }
 
 template <typename T>
 int launch(const void* const* ptr, int batch, int nf, int nfeat, double c2,
-           double sqrt_aw, int est_ext, void* stream) {
+           double sqrt_aw, int est_ext, const double* td_consts, void* stream) {
   Args<T> a;
+  const bool td = td_consts != nullptr;
   const T** in[] = {&a.p, &a.q, &a.v, &a.ba, &a.bg, &a.tic, &a.qic, &a.td,
                     &a.inv_depth, &a.pre_dp, &a.pre_dq, &a.pre_dv, &a.pre_J,
                     &a.pre_dt, &a.pre_ba, &a.pre_bg, &a.pre_S, &a.pre_valid,
                     &a.pts, &a.mask, &a.feat_valid, &a.feat_w, &a.zupt_w,
                     &a.J0, &a.r0, &a.lin_p, &a.lin_q, &a.lin_v, &a.lin_ba,
                     &a.lin_bg, &a.lin_tic, &a.lin_qic, &a.lin_td, &a.prior_w,
-                    &a.p_ref, &a.q_ref, &a.pin_rp, &a.H0};
-  constexpr int n_in = sizeof(in) / sizeof(in[0]);
+                    &a.p_ref, &a.q_ref, &a.pin_rp, &a.H0, &a.vel, &a.td_obs};
+  // the td instance's two inputs follow H0
+  const int n_in = sizeof(in) / sizeof(in[0]) - (td ? 0 : 2);
   for (int i = 0; i < n_in; ++i) *in[i] = static_cast<const T*>(ptr[i]);
+  if (!td) a.vel = a.td_obs = nullptr;
   a.anchor = static_cast<const int64_t*>(ptr[n_in]);
   a.H = static_cast<T*>(const_cast<void*>(ptr[n_in + 1]));
   a.g = static_cast<T*>(const_cast<void*>(ptr[n_in + 2]));
@@ -773,53 +843,71 @@ int launch(const void* const* ptr, int batch, int nf, int nfeat, double c2,
   a.stamps = static_cast<long long*>(const_cast<void*>(ptr[n_in + 6]));
   a.nf = nf;
   a.nfeat = nfeat;
-  a.nw = warps_for(nf, sizeof(T));
+  a.nw = warps_for(nf, sizeof(T), td);
   a.c2 = static_cast<T>(c2);
   a.sqrt_aw = static_cast<T>(sqrt_aw);
   a.est_ext = est_ext;
+  a.tr_over_row = static_cast<T>(td ? td_consts[0] : 0.0);
+  a.row_fy = static_cast<T>(td ? td_consts[1] : 0.0);
+  a.row_c0 = static_cast<T>(td ? td_consts[2] : 0.0);
   if (a.nw == 0 || nf < 2) return static_cast<int>(cudaErrorInvalidValue);
-  const size_t smem = static_cast<size_t>(layout(nf, a.nw).total) * sizeof(T);
-  normal_eq_fused_kernel<T><<<batch, kThreads, smem,
-                        static_cast<cudaStream_t>(stream)>>>(a);
+  const size_t smem = static_cast<size_t>(layout(nf, a.nw, td).total) * sizeof(T);
+  if (td)
+    normal_eq_fused_td_kernel<T><<<batch, kThreads, smem,
+                                   static_cast<cudaStream_t>(stream)>>>(a);
+  else
+    normal_eq_fused_kernel<T><<<batch, kThreads, smem,
+                                static_cast<cudaStream_t>(stream)>>>(a);
   return static_cast<int>(cudaGetLastError());
+}
+
+template <typename K>
+cudaError_t allow_smem(K kernel) {
+  return cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                              kMaxSmem);
 }
 
 }  // namespace
 
-// Lets both instances (float32, float64) take the shared memory a block may
-// have, and loads them now rather than at their first launch inside a solve.
-// Called once after the library is loaded; returns a CUDA error code.
+// Lets the four instances (float32, float64; with and without td) take the
+// shared memory a block may have, and loads them now rather than at their
+// first launch inside a solve. Called once after the library is loaded;
+// returns a CUDA error code.
 extern "C" int avm_normal_eq_init() {
-  cudaError_t err = cudaFuncSetAttribute(
-      normal_eq_fused_kernel<float>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      kMaxSmem);
-  if (err != cudaSuccess) return static_cast<int>(err);
-  return static_cast<int>(cudaFuncSetAttribute(
-      normal_eq_fused_kernel<double>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      kMaxSmem));
+  const cudaError_t errs[] = {allow_smem(normal_eq_fused_kernel<float>),
+                              allow_smem(normal_eq_fused_kernel<double>),
+                              allow_smem(normal_eq_fused_td_kernel<float>),
+                              allow_smem(normal_eq_fused_td_kernel<double>)};
+  for (cudaError_t err : errs)
+    if (err != cudaSuccess) return static_cast<int>(err);
+  return 0;
 }
 
-// Warps that sum projection factors for NF frames in the given type (the
-// kernel's choice; 0: NF too large for a block's shared memory).
-extern "C" int avm_normal_eq_warps(int nf, int f64) {
-  return warps_for(nf, f64 ? 8 : 4);
+// Warps that sum projection factors for NF frames in the given type, with or
+// without the td column (the kernel's choice; 0: NF too large for a block's
+// shared memory).
+extern "C" int avm_normal_eq_warps(int nf, int f64, int td) {
+  return warps_for(nf, f64 ? 8 : 4, td != 0);
 }
 
 // The normal equations of `batch` scenarios of NF frames and `nfeat`
 // landmark slots. `ptr` holds, in this order, the device pointers of
-// Args' inputs as `launch` lists them (feat_w, zupt_w and pin_rp may be 0),
+// Args' inputs as `launch` lists them (feat_w, zupt_w and pin_rp may be 0;
+// vel and td_obs only where `td_consts` is given, td_obs may be 0),
 // the anchor frames (int64), then the outputs H, g, H_lp, h_ll, g_l; all
 // contiguous, [batch, ...], of one type: float64 if `f64`, else float32;
 // last the optional int64 stamps (0: none).
 // `c2`: the Cauchy scale squared; `sqrt_aw`: the square root of the gauge
-// anchor's weight. Launches on `stream`; returns cudaGetLastError() (0 =
-// launched).
+// anchor's weight; `td_consts`: null for a solve that holds td, else
+// (TR / ROW, fy, cy - ROW / 2) of the time offset's instance. Launches on
+// `stream`; returns cudaGetLastError() (0 = launched).
 extern "C" int avm_normal_eq_fused(const void* const* ptr, int batch, int nf,
                                    int nfeat, double c2, double sqrt_aw,
-                                   int est_ext, int f64, void* stream) {
+                                   int est_ext, int f64,
+                                   const double* td_consts, void* stream) {
   if (batch <= 0) return 0;
   return f64 ? launch<double>(ptr, batch, nf, nfeat, c2, sqrt_aw, est_ext,
-                              stream)
+                              td_consts, stream)
              : launch<float>(ptr, batch, nf, nfeat, c2, sqrt_aw, est_ext,
-                             stream);
+                             td_consts, stream);
 }

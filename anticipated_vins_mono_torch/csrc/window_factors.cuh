@@ -322,17 +322,21 @@ __device__ __forceinline__ void normalize(S* q) {
 // ---------------------------------------------------------------------------
 
 // `projection_residual`: the landmark at inverse depth rho along pt_i of the
-// anchor's camera, carried into frame j's camera, against pt_j, whitened
-template <typename R = Unfused, typename A, typename J, typename E, typename Rh, typename T>
+// anchor's camera, carried into frame j's camera, against pt_j, whitened. The
+// observations may be duals (the time offset's tangent, `proj_factor_td`).
+template <typename R = Unfused, typename A, typename J, typename E, typename Rh, typename Pi,
+          typename Pj>
 __device__ __forceinline__ void proj_residual(
     const A* pa, const A* qa, const J* pj, const J* qj, const E* tic,
-    const E* qic, const Rh& rho, const T* pt_i, const T* pt_j,
-    Pr<E, Pr<J, Pr<A, Pr<E, Rh>>>>* r) {
-  using C1 = Pr<E, Rh>;
+    const E* qic, const Rh& rho, const Pi* pt_i, const Pj* pt_j,
+    Pr<Pj, Pr<E, Pr<J, Pr<A, Pr<E, Pr<Pi, Rh>>>>>>* r) {
+  using T = typename Traits<Pj>::scalar;
+  using C0 = Pr<Pi, Rh>;
+  using C1 = Pr<E, C0>;
   using C2 = Pr<A, C1>;
   using C3 = Pr<J, C2>;
   using C4 = Pr<E, C3>;
-  Rh cam_i[3];
+  C0 cam_i[3];
 #pragma unroll
   for (int c = 0; c < 3; ++c) cam_i[c] = pt_i[c] / rho;
   C1 imu_i[3];
@@ -361,6 +365,29 @@ __device__ __forceinline__ void proj_residual(
   if (fabs(val(z)) < T(1e-9)) z = lift<C4>(T(1e-9));
 #pragma unroll
   for (int c = 0; c < 2; ++c) r[c] = (cam_j[c] / z - pt_j[c]) * T(kFocal);
+}
+
+// The constants of one observation under the time offset and the rolling
+// shutter (`factors.projection_td_residual_raw`): its image velocity, td at
+// its frame's capture, and TR / ROW, fy and cy - ROW / 2 of the row recovery
+template <typename T>
+struct TdObs {
+  const T* vel;
+  T td_k, tr_over_row, row_fy, row_c0;
+};
+
+// The observation shifted along its image velocity by (td - td_k) +
+// TR / ROW * row, the row recovered from its own y as row_fy y + row_c0:
+// `pt - shift * [vel, 0]` with each product and sum rounded on its own. `td`
+// may be a dual (its tangent that of the time offset).
+template <typename S, typename T>
+__device__ __forceinline__ void td_shift(const T* pt, const TdObs<T>& o, const S& td,
+                                         S* out) {
+  const T row = o.row_fy * pt[1] + o.row_c0;
+  const S shift = (td - o.td_k) + o.tr_over_row * row;
+#pragma unroll
+  for (int c = 0; c < 2; ++c) out[c] = pt[c] - shift * o.vel[c];
+  out[2] = pt[2] - shift * T(0);
 }
 
 // one pair's preintegrated measurement (`preintegration.Preintegrated`)

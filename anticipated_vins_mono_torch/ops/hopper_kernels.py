@@ -24,7 +24,10 @@ package has XLA's linearization. `lm_cost_fused` takes the LM iteration's
 cost phase, the retraction, the robust cost, the decision and the next
 iterate, in one launch (`csrc/lm_cost_fused.cu`), float32 or float64, where
 the JAX package has XLA inside its `lax.scan`; the two window kernels share
-their factors (`csrc/window_factors.cuh`). All three are launchers of flat
+their factors (`csrc/window_factors.cuh`). Each window kernel has a second
+instance for a solve that estimates the camera-IMU time offset td under a
+global or a rolling shutter (`td_consts`), counted under its own name in
+`launch_counts` (`TD_INSTANCES`). All three are launchers of flat
 `[B, ...]` tensors and take CUDA tensors only: the op that owns the types
 packs them and chooses the route, and holds the plain version
 (`preintegration.preintegrate`, `window._lm_route`).
@@ -77,9 +80,13 @@ KERNEL_SOURCES = {
 KERNEL_FLAGS = {"normal_eq_fused": ("-fmad=false",),
                 "lm_cost_fused": ("-fmad=false",)}
 
+# the window kernels' instances that estimate the time offset, counted under
+# names of their own (their sources are the kernels')
+TD_INSTANCES = ("normal_eq_fused_td", "lm_cost_fused_td")
+
 # launches since the last reset, per kernel; a wrapper adds one exactly where
 # it launches its kernel
-launch_counts = {name: 0 for name in KERNEL_SOURCES}
+launch_counts = {name: 0 for name in (*KERNEL_SOURCES, *TD_INSTANCES)}
 
 _libs: dict = {}
 build_logs: dict = {}
@@ -159,17 +166,18 @@ def _declare(name: str, lib):
     after loading)."""
     ptr, i32, f64 = ctypes.c_void_p, ctypes.c_int, ctypes.c_double
     if name == "normal_eq_fused":
-        # (pointers, batch, nf, nfeat, c2, sqrt_aw, est_ext, f64, stream)
+        # (pointers, batch, nf, nfeat, c2, sqrt_aw, est_ext, f64, td_consts,
+        #  stream)
         lib.avm_normal_eq_fused.argtypes = [ptr] + [i32] * 3 + [f64] * 2 + \
-            [i32] * 2 + [ptr]
-        lib.avm_normal_eq_warps.argtypes = [i32, i32]
+            [i32] * 2 + [ptr] * 2
+        lib.avm_normal_eq_warps.argtypes = [i32] * 3
         fns = (lib.avm_normal_eq_fused, lib.avm_normal_eq_warps,
                lib.avm_normal_eq_init)
     elif name == "lm_cost_fused":
         # (pointers, batch, nf, nfeat, mode, c2, sqrt_aw, min_inv_depth,
-        #  nielsen, lam_up, lam_down, pred_f64, f64, stream)
+        #  nielsen, lam_up, lam_down, pred_f64, f64, td_consts, stream)
         lib.avm_lm_cost_fused.argtypes = [ptr] + [i32] * 4 + [f64] * 3 + \
-            [i32] + [f64] * 2 + [i32] * 2 + [ptr]
+            [i32] + [f64] * 2 + [i32] * 2 + [ptr] * 2
         fns = (lib.avm_lm_cost_fused, lib.avm_lm_cost_init)
     elif name == "preint_scan":
         # (dts, accs, gyrs, acc0, gyr0, ba, bg, dp, dq, dv, J, P, dt_sum, S,
@@ -657,12 +665,15 @@ def preint_scan(dts: Tensor, accs: Tensor, gyrs: Tensor, acc0: Tensor,
     return outs
 
 
-def normal_eq_inputs(nf: int, nfeat: int) -> dict:
+def normal_eq_inputs(nf: int, nfeat: int, td: bool = False) -> dict:
     """The inputs of the normal equations' kernel by name, in the order of
     `csrc/normal_eq_fused.cu`'s pointer table, each with its shape after the
     batch, for NF = `nf` frames (W = NF - 1 pairs, D = 15·NF + 13) and F =
-    `nfeat` landmark slots (`Args` in the source says what each holds)."""
+    `nfeat` landmark slots (`Args` in the source says what each holds); with
+    `td` the time offset's instance, which takes the image velocities and
+    td at each frame's capture besides."""
     W, F, D = nf - 1, nfeat, 15 * nf + 13
+    td_in = {"vel": (F, nf, 2), "td_obs": (nf,)} if td else {}
     pose = {"p": (nf, 3), "q": (nf, 4), "v": (nf, 3), "ba": (nf, 3),
             "bg": (nf, 3), "tic": (3,), "qic": (4,), "td": ()}
     return {**pose, "inv_depth": (F,),
@@ -673,30 +684,45 @@ def normal_eq_inputs(nf: int, nfeat: int) -> dict:
             "feat_w": (F,), "zupt_w": (nf,), "J0": (D, D), "r0": (D,),
             **{"lin_" + k: s for k, s in pose.items()}, "prior_w": (),
             "p_ref": (3,), "q_ref": (4,), "pin_rp": (), "H0": (D, D),
-            "anchor": (F,)}
+            **td_in, "anchor": (F,)}
 
 
 # inputs the kernel takes as null: no feature weights (1), no ZUPT rows, no
-# roll/pitch scale (1)
-NE_OPTIONAL = ("feat_w", "zupt_w", "pin_rp")
+# roll/pitch scale (1), no td at the frames' capture (0)
+NE_OPTIONAL = ("feat_w", "zupt_w", "pin_rp", "td_obs")
+
+
+def _td_table(td_consts):
+    """The time offset's constants (TR / ROW, fy, cy − ROW / 2) as the
+    launch's array of three doubles, or None: the instance without td."""
+    if td_consts is None:
+        return None, None
+    if len(td_consts) != 3:
+        raise ValueError(f"td_consts: (tr_over_row, row_fy, row_c0), got "
+                         f"{len(td_consts)} numbers")
+    table = (ctypes.c_double * 3)(*map(float, td_consts))
+    return table, ctypes.addressof(table)
 
 
 def normal_eq_fused(inputs: dict, c2: float, sqrt_aw: float, est_ext: bool,
-                    stamps: Tensor = None):
+                    stamps: Tensor = None, td_consts: tuple = None):
     """One launch of the normal equations' kernel on B scenarios, one block
     each: `inputs` the tensors `normal_eq_inputs` names, contiguous [B, ...]
     CUDA tensors of one type, float32 or float64 (`anchor` int64); `c2` the
     Cauchy scale squared, `sqrt_aw` the square root of the gauge anchor's
     weight → (H [B,D,D], g [B,D], H_lp [B,F,D], h_ll [B,F], g_l [B,F]).
     `stamps`: optional int64 tensor on the card that takes block 0's
-    clock64() at `NE_STAMPS`."""
+    clock64() at `NE_STAMPS`. `td_consts` (TR / ROW, fy, cy − ROW / 2): the
+    instance that estimates the time offset, whose inputs are
+    `normal_eq_inputs(..., td=True)`; counted as `normal_eq_fused_td`."""
     nf, F = inputs["p"].shape[1], inputs["inv_depth"].shape[1]
-    shapes = normal_eq_inputs(nf, F)
+    td = td_consts is not None
+    shapes = normal_eq_inputs(nf, F, td)
     B, dtype, dev = _check_inputs("normal_eq_fused", inputs, shapes,
                                   NE_OPTIONAL)
     f64 = int(dtype == torch.float64)
     lib = build_kernels()["normal_eq_fused"]
-    if lib.avm_normal_eq_warps(nf, f64) == 0:
+    if lib.avm_normal_eq_warps(nf, f64, int(td)) == 0:
         raise ValueError(f"normal_eq_fused: {nf} frames do not fit a block's "
                          f"shared memory")
     D = 15 * nf + 13
@@ -706,20 +732,24 @@ def normal_eq_fused(inputs: dict, c2: float, sqrt_aw: float, est_ext: bool,
             for k in shapes] + [x.data_ptr() for x in outs] + \
         [_stamps_ptr(stamps, NE_STAMPS, dev)]
     table = (ctypes.c_void_p * len(ptrs))(*ptrs)
+    consts, consts_ptr = _td_table(td_consts)
     with torch.cuda.device(dev):
         err = lib.avm_normal_eq_fused(
             ctypes.addressof(table), B, nf, F, float(c2), float(sqrt_aw),
-            int(est_ext), f64, torch.cuda.current_stream().cuda_stream)
-    _raise_on(err, "normal_eq_fused")
-    launch_counts["normal_eq_fused"] += 1
+            int(est_ext), f64, consts_ptr,
+            torch.cuda.current_stream().cuda_stream)
+    name = "normal_eq_fused_td" if td else "normal_eq_fused"
+    _raise_on(err, name)
+    launch_counts[name] += 1
     return outs
 
 
-def lm_cost_inputs(nf: int, nfeat: int) -> dict:
+def lm_cost_inputs(nf: int, nfeat: int, td: bool = False) -> dict:
     """The inputs of the cost phase's kernel by name, in the order of
     `csrc/lm_cost_fused.cu`'s pointer table, each with its shape after the
     batch: the normal equations' inputs but H0 (`normal_eq_inputs`)."""
-    return {k: s for k, s in normal_eq_inputs(nf, nfeat).items() if k != "H0"}
+    return {k: s for k, s in normal_eq_inputs(nf, nfeat, td).items()
+            if k != "H0"}
 
 
 # the kernel's modes and, for each, the step tensors it takes
@@ -734,7 +764,7 @@ LM_COST_OUTPUTS = ("p", "q", "v", "ba", "bg", "tic", "qic", "td", "inv_depth",
 def lm_cost_fused(inputs: dict, mode: str, c2: float, sqrt_aw: float,
                   min_inv_depth: float, nielsen: bool, lam_up: float,
                   lam_down: float, step: tuple = (),
-                  diagnostics: bool = False) -> dict:
+                  diagnostics: bool = False, td_consts: tuple = None) -> dict:
     """One launch of the cost phase's kernel on B scenarios, one block each:
     `inputs` the tensors `lm_cost_inputs` names, as `normal_eq_fused` takes
     them (the state's leaves the iterate). `mode`:
@@ -750,9 +780,12 @@ def lm_cost_fused(inputs: dict, mode: str, c2: float, sqrt_aw: float,
     float64. `c2`, `sqrt_aw` as `normal_eq_fused`; `nielsen` the damping rule
     ("halving" by `lam_up` and `lam_down` otherwise). Returns the outputs by
     name: the leaves and lam in the state's type, cost [B] float64, ok [B]
-    bool, imu_chi2 and prior_chi2 [B]; nothing is written into the inputs."""
+    bool, imu_chi2 and prior_chi2 [B]; nothing is written into the inputs.
+    `td_consts` as `normal_eq_fused`'s: the instance that estimates the
+    time offset, counted as `lm_cost_fused_td`."""
     nf, F = inputs["p"].shape[1], inputs["inv_depth"].shape[1]
-    shapes = lm_cost_inputs(nf, F)
+    td = td_consts is not None
+    shapes = lm_cost_inputs(nf, F, td)
     B, dtype, dev = _check_inputs("lm_cost_fused", inputs, shapes, NE_OPTIONAL)
     code, names = LM_COST_MODES[mode]
     D = 15 * nf + 13
@@ -789,12 +822,14 @@ def lm_cost_fused(inputs: dict, mode: str, c2: float, sqrt_aw: float,
     table = (ctypes.c_void_p * len(ptrs))(*ptrs)
     pred_f64 = int(len(step) > 2 and step[2].dtype == torch.float64)
     lib = build_kernels()["lm_cost_fused"]
+    consts, consts_ptr = _td_table(td_consts)
     with torch.cuda.device(dev):
         err = lib.avm_lm_cost_fused(
             ctypes.addressof(table), B, nf, F, code, float(c2),
             float(sqrt_aw), float(min_inv_depth), int(nielsen), float(lam_up),
             float(lam_down), pred_f64, int(dtype == torch.float64),
-            torch.cuda.current_stream().cuda_stream)
-    _raise_on(err, "lm_cost_fused")
-    launch_counts["lm_cost_fused"] += 1
+            consts_ptr, torch.cuda.current_stream().cuda_stream)
+    name = "lm_cost_fused_td" if td else "lm_cost_fused"
+    _raise_on(err, name)
+    launch_counts[name] += 1
     return out

@@ -667,10 +667,11 @@ def build_normal_equations(r_all, J_all, p_res, p_rows, p_rho,
 def normal_equations_fast(state: WindowState, meas: WindowMeasurements,
                           cfg: WindowConfig, anchor_ref=None):
     """Normal equations for the LM hot loop, (H, g, H_lp, h_ll, g_l), of a
-    window without a relocalization frame or td estimation, by `lm_solve`'s
-    route (`_lm_route`): on CUDA tensors (float32 or float64) one launch of
-    the hand-written kernel, which linearizes every factor in registers; on
-    CPU tensors the plain version."""
+    window without a relocalization frame, by `lm_solve`'s route
+    (`_lm_route`): on CUDA tensors (float32 or float64) one launch of the
+    hand-written kernel (its td instance where td is estimated), which
+    linearizes every factor in registers; on CPU tensors the plain
+    version."""
     if anchor_ref is None:
         anchor_ref = (state.p[..., 0, :], state.q[..., 0, :])
     return _lm_route(state, meas, cfg, anchor_ref).normal_equations(state)
@@ -692,15 +693,15 @@ def _lm_route(state: WindowState, meas: WindowMeasurements,
               cfg: WindowConfig, anchor_ref) -> LmRoute:
     """The one place that chooses how a solve builds its normal equations
     and takes its cost phases, by what it can observe. A relocalization
-    frame or td estimation: `linearize`'s dense rows and the plain cost, on
-    any device (the kernels have neither the relocalization rows nor a td
-    column; no configuration of the main paths estimates td). CPU tensors:
-    the plain versions. CUDA tensors: one launch of
-    `hopper_kernels.normal_eq_fused` and one of `hopper_kernels.lm_cost_fused`
-    an iteration, and two of the latter a solve (the cost at the start, the
-    diagnostics at the end); what they read that does not change over the
-    solve is made here, once."""
-    if meas.relo_pts is not None or cfg.estimate_td:
+    frame: `linearize`'s dense rows and the plain cost, on any device (the
+    kernels have no relocalization rows). CPU tensors: the plain versions.
+    CUDA tensors: one launch of `hopper_kernels.normal_eq_fused` and one of
+    `hopper_kernels.lm_cost_fused` an iteration, and two of the latter a
+    solve (the cost at the start, the diagnostics at the end), each the
+    instance with the time offset's column where `cfg.estimate_td` (the
+    rolling shutter's TR / ROW a number it reads); what they read that does
+    not change over the solve is made here, once."""
+    if meas.relo_pts is not None:
         def normal_equations(st):
             return build_normal_equations(
                 *linearize(st, meas, cfg, anchor_ref)[:5], cfg)
@@ -729,11 +730,13 @@ def _kernel_route(state: WindowState, meas: WindowMeasurements,
     their [B, ...] layout. `normal_equations` takes `stamps` as
     `hopper_kernels.normal_eq_fused` does."""
     hk = hopper_kernels
-    shapes = hk.normal_eq_inputs(cfg.nf, cfg.max_feats)
+    shapes = hk.normal_eq_inputs(cfg.nf, cfg.max_feats, cfg.estimate_td)
     fixed = _kernel_fixed_inputs(state, meas, cfg, anchor_ref, shapes)
     batch = state.p.shape[:-2]
     leaves = [k for k in WindowState._fields if k in shapes]
     c2, sqrt_aw = float(cfg.cauchy_scale) ** 2, float(cfg.anchor_weight) ** 0.5
+    td_consts = (cfg.tr_over_row, cfg.row_fy, cfg.row_c0) \
+        if cfg.estimate_td else None
 
     def inputs(st):
         return {**fixed, **{k: hk.flat_batch(getattr(st, k), batch, shapes[k])
@@ -743,12 +746,13 @@ def _kernel_route(state: WindowState, meas: WindowMeasurements,
         out = hk.lm_cost_fused(
             inputs(st), mode, c2, sqrt_aw, cfg.min_inv_depth,
             cfg.lm_strategy == "nielsen", cfg.lm_lambda_up,
-            cfg.lm_lambda_down, step, diagnostics)
+            cfg.lm_lambda_down, step, diagnostics, td_consts)
         return dict(zip(out, hk.unflat_batch(tuple(out.values()), batch)))
 
     def normal_equations(st, stamps=None):
         return hk.unflat_batch(hk.normal_eq_fused(
-            inputs(st), c2, sqrt_aw, cfg.estimate_extrinsic, stamps), batch)
+            inputs(st), c2, sqrt_aw, cfg.estimate_extrinsic, stamps,
+            td_consts), batch)
 
     def cost_step(st, dx, d_rho, pred, lam, cost):
         out = cost_kernel(st, "step", (
@@ -772,7 +776,8 @@ def _kernel_fixed_inputs(state: WindowState, meas: WindowMeasurements,
     """What the normal equations' kernel reads that does not change over a
     solve, by its input names (`shapes`, `hopper_kernels.normal_eq_inputs`),
     flattened to [B, ...] in the state's type: the measurements (S from P
-    where the pairs carry none), the prior and its linearization point, the
+    where the pairs carry none; with td estimation the image velocities and
+    td at each frame's capture), the prior and its linearization point, the
     gauge anchor's reference, H0 = J_sᵀJ_s of the prior, anchor and ZUPT
     rows, whose Jacobian does not depend on the state, and the anchor
     frames (int64)."""
@@ -790,7 +795,9 @@ def _kernel_fixed_inputs(state: WindowState, meas: WindowMeasurements,
         p_ref=anchor_ref[0], q_ref=anchor_ref[1], pin_rp=meas.anchor_pin_rp,
         H0=J_s.mT @ J_s,
         **{"lin_" + k: getattr(prior.lin, k) for k in WindowState._fields
-           if "lin_" + k in shapes})
+           if "lin_" + k in shapes},
+        **({"vel": meas.vel, "td_obs": meas.td_obs} if "vel" in shapes
+           else {}))
     fixed = {k: hopper_kernels.flat_batch(x, batch, shapes[k], dtype)
              for k, x in given.items()}
     fixed["anchor"] = hopper_kernels.flat_batch(meas.anchor, batch,
@@ -823,7 +830,7 @@ def normal_equations_fast_plain(state: WindowState, meas: WindowMeasurements,
     into block-pair terms) at a fraction of the memory traffic. The small
     row groups (IMU, prior, anchor, ZUPT) stay dense. Used when no relo
     frame is attached. The plain version of the normal equations' kernel
-    and the path of CPU tensors.
+    (with td estimation its td instance's) and the path of CPU tensors.
     """
     F, NF, D = cfg.max_feats, cfg.nf, cfg.dim
     dtype, dev = state.p.dtype, state.p.device
@@ -993,9 +1000,10 @@ def lm_solve(state: WindowState, meas: WindowMeasurements, cfg: WindowConfig,
     one launch of each hand-written kernel an iteration (and two cost
     launches a solve: the cost at the start, the diagnostics at the end),
     their solve-constant inputs made before the loop, and no host
-    synchronisation in the solve; the plain versions on the CPU; the dense
-    rows of `linearize` and the plain cost on any device for a window with a
-    relocalization frame or a configuration that estimates td. `device` is
+    synchronisation in the solve (with td estimation their td instances);
+    the plain versions on the CPU; the dense rows of `linearize` and the
+    plain cost on any device for a window with a relocalization frame.
+    `device` is
     where the solve runs: the inputs are moved there, and a CUDA device that
     is not present raises. Returns (state, diagnostics dict of per-scenario
     tensors).

@@ -391,15 +391,18 @@ def batched(tree, B: int):
 def window_batch(cfg: WindowConfig, B: int, seed: int = 0,
                  prior_weight: float = 1.0, zupt: bool = True,
                  pin_rp: Optional[float] = 0.5, feat_w: bool = True,
-                 dtype=torch.float64, device="cuda"):
+                 td: bool = False, dtype=torch.float64, device="cuda"):
     """B distinct scenarios of one window for holding the normal equations'
     kernel against its plain version: `make_window_problem(cfg, seed)` at its
     perturbed start, each scenario's state moved by its own noise; a dense
     prior (random J0 and r0, linearized near the state) of weight
     `prior_weight`; ZUPT weights, a roll/pitch pin and feature weights where
     asked; one IMU pair invalid in odd scenarios; the last two landmark slots
-    empty; slot 0 seen in every frame and anchored in the last. Returns
-    (state, meas), every leaf [B, ...]."""
+    empty; slot 0 seen in every frame and anchored in the last. With `td`
+    the time offset's inputs besides: image velocities (~0.2 /s in
+    normalized coordinates, a tracker's) and td at each frame's capture
+    (~3 ms), drawn after everything else. Returns (state, meas), every leaf
+    [B, ...]."""
     rng = np.random.default_rng(seed)
     prob = make_window_problem(cfg, seed=seed, pixel_noise=0.5, perturb=1.0,
                                bias_scale=1.0, device="cpu")
@@ -440,6 +443,8 @@ def window_batch(cfg: WindowConfig, B: int, seed: int = 0,
             (B,), float(pin_rp), dtype=torch.float64),
         feat_w=torch.from_numpy(rng.uniform(0.5, 1.5, (B, F))) if feat_w
         else None)
+    if td:
+        ms = ms._replace(vel=0.2 * noise(F, NF, 2), td_obs=0.003 * noise(NF))
     cast = lambda x: x.to(device=device, dtype=dtype) \
         if x.is_floating_point() else x.to(device)
     return tree_map(cast, st), tree_map(cast, ms)

@@ -421,13 +421,15 @@ def record_called_shapes(hk):
         "preint_scan": lambda dts, accs, *rest, with_cov=True: (
             accs.shape[0], accs.shape[1], str(accs.dtype).split(".")[-1],
             int(rest[7] if len(rest) > 7 else with_cov)),
-        # (scenarios, window, landmark slots, type)
+        # (scenarios, window, landmark slots, type, td instance)
         "normal_eq_fused": lambda ins, *_, **__: (
             ins["p"].shape[0], ins["p"].shape[1] - 1,
-            ins["inv_depth"].shape[1], str(ins["p"].dtype).split(".")[-1]),
+            ins["inv_depth"].shape[1], str(ins["p"].dtype).split(".")[-1],
+            int("vel" in ins)),
         "lm_cost_fused": lambda ins, *_, **__: (
             ins["p"].shape[0], ins["p"].shape[1] - 1,
-            ins["inv_depth"].shape[1], str(ins["p"].dtype).split(".")[-1]),
+            ins["inv_depth"].shape[1], str(ins["p"].dtype).split(".")[-1],
+            int("vel" in ins)),
     }
     saved = {name: getattr(hk, name) for name in shape_of}
     for name, shape in shape_of.items():
@@ -466,10 +468,9 @@ def check_called_shapes(hk):
     preint = [dict(zip(("B", "N", "dtype", "with_cov"), key),
                    **preint_agrees(*key))
               for key in sorted(CALLED_SHAPES["preint_scan"])]
-    ne = [dict(zip(("B", "window", "F", "dtype"), key), **ne_agrees(*key))
+    ne = [dict(zip(WINDOW_KEY, key), **ne_agrees(*key))
           for key in sorted(CALLED_SHAPES["normal_eq_fused"])]
-    lm = [dict(zip(("B", "window", "F", "dtype"), key),
-               **lm_cost_agrees(*key))
+    lm = [dict(zip(WINDOW_KEY, key), **lm_cost_agrees(*key))
           for key in sorted(CALLED_SHAPES["lm_cost_fused"])]
     return ({"plain_loader": plain, "fused_loader": fused}, schur, preint, ne,
             lm)
@@ -482,7 +483,8 @@ def check_called_shapes(hk):
 def solver_launches(counts: dict) -> dict:
     """The selector's and the Schur solve's kernels' launches of `counts`."""
     return {k: n for k, n in counts.items()
-            if k not in ("preint_scan", "normal_eq_fused", "lm_cost_fused")}
+            if k not in ("preint_scan", "normal_eq_fused", "lm_cost_fused",
+                         "normal_eq_fused_td", "lm_cost_fused_td")}
 
 
 def preint_work(B: int, N: int, real: int, with_cov: bool = True):
@@ -553,7 +555,7 @@ def preint_agrees(B: int, N: int, dtype: str, with_cov: int = 1,
             "plain_max_rel_err_vs_f64_loop": plain_err}
 
 
-def ne_work(B: int, window: int = 10, F: int = 128):
+def ne_work(B: int, window: int = 10, F: int = 128, td: bool = False):
     """(bytes, flop) of `normal_eq_fused` on B scenarios, float32: every
     input read once (the prior's J0 twice: its product with the state's
     offset and its transpose's with the residual; H0 once), H, g, H_lp, h_ll,
@@ -562,33 +564,63 @@ def ne_work(B: int, window: int = 10, F: int = 128):
     the divisions, carried with 7, 6 and 6 tangents; per IMU pair ~16,000),
     the sums (a factor's 2 x 20 columns into 105 + 105 entries, an IMU
     pair's 30 x 31 products of 15 rows and its whitening, 15 x 15 x 31), the
-    prior's two D x D products."""
+    prior's two D x D products. With `td` the time offset's instance: the
+    image velocities and td at the frames' capture read besides, a factor's
+    two observations shifted (~20 flop) and a fourth pass of one tangent
+    (~600), its 2 x 21 columns into 120 + 111 entries."""
     NF, D = window + 1, 15 * (window + 1) + 13
     W = window
     ins = (NF * 16 + 1 + F) + W * (3 + 4 + 3 + 225 + 1 + 3 + 3 + 225 + 1) \
-        + F * NF * 4 + F * 3 + NF + D * D * 3 + D + NF * 16 + 2 + 8
+        + F * NF * 4 + F * 3 + NF + D * D * 3 + D + NF * 16 + 2 + 8 \
+        + (F * NF * 2 + NF if td else 0)
     outs = D * D + D + F * D + 2 * F
-    proj = F * (NF - 1) * (3100 + 2 * 2 * (105 + 105))
+    proj = F * (NF - 1) * (3100 + 2 * 2 * (105 + 105) if not td
+                           else 3100 + 620 + 2 * 2 * (120 + 111))
     imu = W * (16000 + 2 * 15 * 15 * 31 + 2 * 15 * 495)
     prior = 2 * 2 * D * D
     return B * (ins + outs) * 4, B * (proj + imu + prior)
 
 
-def ne_agrees(B: int, window: int, F: int, dtype: str) -> dict:
+# a window kernel's called shape: (scenarios, window, landmark slots, type,
+# 1 for the instance that estimates the time offset)
+WINDOW_KEY = ("B", "window", "F", "dtype", "td")
+# the flagship window's shapes each window kernel is held at in the kernel
+# phase: B = 1 and 64, both types, both instances
+FLAGSHIP_KEYS = tuple((B, 10, 128, dtype, td) for td in (0, 1)
+                      for dtype in ("float32", "float64") for B in (1, 64))
+# the time offset's instance is held at a rolling shutter of 33 ms over 480
+# rows (`realsense_vio`'s) with td 4 ms off td at the frames' capture
+TD_TR_OVER_ROW = 0.033 / 480
+
+
+def window_case(B: int, window: int, F: int, td: int, seed: int):
+    """(config, state, measurements) of B seeded scenarios of
+    `synthetic.window_batch` for holding a window kernel against its plain
+    version; with `td` the time offset's instance and its inputs."""
+    from anticipated_vins_mono_torch.ops import window as win
+    from anticipated_vins_mono_torch.utils.synthetic import window_batch
+    cfg = win.WindowConfig(window=window, max_feats=F, estimate_td=bool(td),
+                           tr_over_row=TD_TR_OVER_ROW if td else 0.0)
+    st, ms = window_batch(cfg, B, seed=seed, td=bool(td), device="cuda")
+    if td:
+        st = st._replace(td=st.td + 0.004)
+    return cfg, st, ms
+
+
+def ne_agrees(B: int, window: int, F: int, dtype: str, td: int = 0) -> dict:
     """The normal equations' kernel against its plain version
     (`window.normal_equations_fast_plain`) on the card, on B seeded
     scenarios of `synthetic.window_batch` (a prior, ZUPT, a roll/pitch pin,
-    feature weights, empty slots, a landmark anchored in the last frame).
+    feature weights, empty slots, a landmark anchored in the last frame;
+    with `td` the time offset's instance, `window_case`).
     float64: every output within 1e-10 of its largest entry. float32: each
     output's largest distance to the float64 plain version at most 4 times
     the float32 plain version's, plus 8 ulps of its size (the same sums in
     another order). Returns the largest distances, kernel and plain,
     relative to each output's size."""
     from anticipated_vins_mono_torch.ops import window as win
-    from anticipated_vins_mono_torch.utils.synthetic import window_batch
     from anticipated_vins_mono_torch.utils.tree import tree_map
-    cfg = win.WindowConfig(window=window, max_feats=F)
-    st, ms = window_batch(cfg, B, seed=B + F, device="cuda")
+    cfg, st, ms = window_case(B, window, F, td, seed=B + F)
     ref64 = win.normal_equations_fast_plain(st, ms, cfg)
     if dtype == "float32":
         cast = lambda x: x.float() if x.is_floating_point() else x
@@ -607,7 +639,7 @@ def ne_agrees(B: int, window: int, F: int, dtype: str) -> dict:
         ok = ek <= 1e-10 if dtype == "float64" else ek <= 4 * ep + 8 * eps
         if not ok or k.shape != r64.shape or not torch.isfinite(k).all():
             raise AssertionError(
-                f"normal_eq_fused disagrees at {(B, window, F, dtype)}, "
+                f"normal_eq_fused disagrees at {(B, window, F, dtype, td)}, "
                 f"{name}: {ek} vs the plain version's {ep} (relative to the "
                 f"float64 plain version)")
     return {"max_rel_err_vs_f64_plain": kernel_err,
@@ -649,10 +681,12 @@ def lm_cost_plain_step(cfg, st, ms):
     return dx, d_rho, pred, lam, win.robust_cost(st, ms, cfg, ref)
 
 
-def lm_cost_agrees(B: int, window: int, F: int, dtype: str) -> dict:
+def lm_cost_agrees(B: int, window: int, F: int, dtype: str,
+                   td: int = 0) -> dict:
     """The cost phase's kernel (`window._lm_route`'s cost step) against its
     plain version (`window._lm_cost_plain`) on the card, on B seeded
-    scenarios of `synthetic.window_batch`, one plain LM step from each
+    scenarios of `synthetic.window_batch` (with `td` the time offset's
+    instance, `window_case`), one plain LM step from each
     (scenario 1's poisoned by a NaN, which both must reject): the same
     decisions, the next iterate bit for bit, λ bit for bit ("halving"), the
     next cost within 1e-12 relative (float64: the same terms, another order
@@ -662,10 +696,8 @@ def lm_cost_agrees(B: int, window: int, F: int, dtype: str) -> dict:
     Returns the largest relative distances, kernel and plain, to the
     float64 plain cost."""
     from anticipated_vins_mono_torch.ops import window as win
-    from anticipated_vins_mono_torch.utils.synthetic import window_batch
     from anticipated_vins_mono_torch.utils.tree import tree_map
-    cfg = win.WindowConfig(window=window, max_feats=F)
-    st, ms = window_batch(cfg, B, seed=B + F + 1, device="cuda")
+    cfg, st, ms = window_case(B, window, F, td, seed=B + F + 1)
     if dtype == "float32":
         cast = lambda x: x.float() if x.is_floating_point() else x
         st, ms = tree_map(cast, st), tree_map(cast, ms)
@@ -694,7 +726,7 @@ def lm_cost_agrees(B: int, window: int, F: int, dtype: str) -> dict:
     close = ek <= 1e-12 if dtype == "float64" else ek <= 4 * ep + 1e-12
     if not (same and close):
         raise AssertionError(
-            f"lm_cost_fused disagrees at {(B, window, F, dtype)}: decisions "
+            f"lm_cost_fused disagrees at {(B, window, F, dtype, td)}: decisions "
             f"and bits {same}, cost {ek} vs the plain version's {ep} "
             f"(relative to the float64 plain cost)")
     return {"max_rel_err_vs_f64_plain": ek,
@@ -714,7 +746,9 @@ def phase_kernels(hk):
     hk.build_kernels()
     build_s = time.perf_counter() - t0
     ptxas = {name: [ln.strip() for ln in log.splitlines()
-                    if "registers" in ln or "error" in ln.lower()]
+                    if any(w in ln for w in ("registers", "spill",
+                                             "entry function"))
+                    or "error" in ln.lower()]
              for name, log in hk.build_logs.items()}
     emit({"phase": "build", "seconds": round(build_s, 2), "ptxas": ptxas})
     # the sizes the wrappers check before a launch are the kernels' layouts
@@ -900,23 +934,26 @@ def phase_kernels(hk):
 def ne_kernel(hk):
     """The normal equations' kernel at the flagship window (D = 178, F =
     128) against its plain version at `ne_agrees`' tolerances, B = 1 and 64,
-    both types; its bits the same on a second launch and from a replayed
-    CUDA graph; timed graph-replayed at B = 1, 64 and 512 (float32, and
-    float64 at 64) beside its bound, the plain version's time and one eager
-    call's (the packing's host time included), with block 0's phase split:
-    `window._lm_route`'s function, the fixed inputs made once."""
+    both types, both instances; its bits the same on a second launch and
+    from a replayed CUDA graph; timed graph-replayed at B = 1, 64 and 512
+    (float32, and float64 at 64; the td instance's `td_ms`) beside its
+    bound, the plain version's time and one eager call's (the packing's host
+    time included), with block 0's phase split: `window._lm_route`'s
+    function, the fixed inputs made once."""
     from anticipated_vins_mono_torch.ops import window as win
     from anticipated_vins_mono_torch.utils.synthetic import window_batch
     from anticipated_vins_mono_torch.utils.tree import tree_map
-    checked = [dict(zip(("B", "window", "F", "dtype"), key),
-                    **ne_agrees(*key))
-               for key in ((1, 10, 128, "float32"), (64, 10, 128, "float32"),
-                           (1, 10, 128, "float64"), (64, 10, 128, "float64"))]
+    checked = [dict(zip(WINDOW_KEY, key), **ne_agrees(*key))
+               for key in FLAGSHIP_KEYS]
     cfg = win.WindowConfig(window=10, max_feats=128)
     cast = lambda x: x.float() if x.is_floating_point() else x
     anchor_ref = lambda st: (st.p[..., 0, :], st.q[..., 0, :])
     by_batch = {}
     for B in (1, 64, 512):
+        td_cfg, st, ms = window_case(B, 10, 128, 1, seed=B)
+        st, ms = tree_map(cast, st), tree_map(cast, ms)
+        route = win._lm_route(st, ms, td_cfg, anchor_ref(st)).normal_equations
+        td_ms = kernel_ms(lambda: route(st), 20)
         st, ms = window_batch(cfg, B, seed=B, device="cuda")
         route = win._lm_route(st, ms, cfg, anchor_ref(st)).normal_equations
         f64_ms = kernel_ms(lambda: route(st)) if B == 64 else None
@@ -936,7 +973,9 @@ def ne_kernel(hk):
         route(st, stamps=stamps)
         b_ms, b_by = bound(*ne_work(B))
         by_batch[f"b{B}"] = {
-            "ms": ms_, "f64_ms": f64_ms, "eager_ms": cuda_ms(run, 10, 2),
+            "ms": ms_, "f64_ms": f64_ms, "td_ms": td_ms,
+            "td_bound_ms": bound(*ne_work(B, td=True))[0],
+            "eager_ms": cuda_ms(run, 10, 2),
             "plain_ms": cuda_ms(lambda: win.normal_equations_fast_plain(
                 st, ms, cfg), 2, 1),
             "bound_ms": b_ms, "bound_by": b_by,
@@ -954,6 +993,8 @@ def ne_kernel(hk):
         "max_rel_err": max(c["max_rel_err_vs_f64_plain"] for c in checked
                            if c["dtype"] == "float32"),
         "ms": by_batch["b64"]["ms"], "by_batch": by_batch,
+        "td_instance": "normal_eq_fused_td_kernel: td_ms graph-replayed, "
+                       "float32, rolling shutter 33 ms / 480 rows",
         "bound_note": "a block per scenario and the dual numbers' dependent "
                       "chains, not bytes or flop",
     }
@@ -962,7 +1003,8 @@ def ne_kernel(hk):
 def lm_cost_kernel(hk):
     """The cost phase's kernel at the flagship window (D = 178, F = 128)
     against its plain version at `lm_cost_agrees`' tolerances, B = 1 and 64,
-    both types; at B = 1, 64 and 512 (float32) its bits the same on a second
+    both types, both instances (the td instance's step timed graph-replayed
+    as `td_ms`); at B = 1, 64 and 512 (float32) its bits the same on a second
     launch and from a replayed CUDA graph, its decisions and next iterate
     the plain version's, timed graph-replayed beside its bound, one eager
     call's time (the packing's host time included) and the plain version's
@@ -971,14 +1013,18 @@ def lm_cost_kernel(hk):
     from anticipated_vins_mono_torch.ops import window as win
     from anticipated_vins_mono_torch.utils.synthetic import window_batch
     from anticipated_vins_mono_torch.utils.tree import tree_map
-    checked = [dict(zip(("B", "window", "F", "dtype"), key),
-                    **lm_cost_agrees(*key))
-               for key in ((1, 10, 128, "float32"), (64, 10, 128, "float32"),
-                           (1, 10, 128, "float64"), (64, 10, 128, "float64"))]
+    checked = [dict(zip(WINDOW_KEY, key), **lm_cost_agrees(*key))
+               for key in FLAGSHIP_KEYS]
     cfg = win.WindowConfig(window=10, max_feats=128)
     cast = lambda x: x.float() if x.is_floating_point() else x
     by_batch = {}
     for B in (1, 64, 512):
+        td_cfg, st, ms = window_case(B, 10, 128, 1, seed=B)
+        st, ms = tree_map(cast, st), tree_map(cast, ms)
+        step = lm_cost_plain_step(td_cfg, st, ms)
+        route = win._lm_route(st, ms, td_cfg, (st.p[..., 0, :],
+                                               st.q[..., 0, :]))
+        td_ms = kernel_ms(lambda: route.cost_step(st, *step), 20)
         st, ms = window_batch(cfg, B, seed=B, device="cuda")
         st, ms = tree_map(cast, st), tree_map(cast, ms)
         ref = (st.p[..., 0, :], st.q[..., 0, :])
@@ -1002,7 +1048,7 @@ def lm_cost_kernel(hk):
         ms_ = kernel_ms(run, 20)
         b_ms, b_by = bound(*lm_cost_work(B))
         by_batch[f"b{B}"] = {
-            "ms": ms_, "eager_ms": cuda_ms(run, 10, 2),
+            "ms": ms_, "td_ms": td_ms, "eager_ms": cuda_ms(run, 10, 2),
             "plain_ms": cuda_ms(lambda: win._lm_cost_plain(
                 st, *step, ms, cfg, ref), 3, 1),
             "bound_ms": b_ms, "bound_by": b_by,
@@ -1020,6 +1066,8 @@ def lm_cost_kernel(hk):
         "max_rel_err": max(c["max_rel_err_vs_f64_plain"] for c in checked
                            if c["dtype"] == "float32"),
         "ms": by_batch["b64"]["ms"], "by_batch": by_batch,
+        "td_instance": "lm_cost_fused_td_kernel: td_ms graph-replayed, "
+                       "float32, rolling shutter 33 ms / 480 rows",
         "bound_note": "the prior's J0 read dominates the bytes",
     }
 
@@ -1280,6 +1328,7 @@ def check_vio_counts(tag, run, per_frame):
     want["preint_scan"] = run["frames"] + run["keyframes"]
     want["normal_eq_fused"] = run["iters"] * run["frames"]
     want["lm_cost_fused"] = (run["iters"] + 2) * run["frames"]
+    want["normal_eq_fused_td"] = want["lm_cost_fused_td"] = 0
     if run["counts"] != want:
         raise AssertionError(f"{tag}: launched {run['counts']}, wanted {want}")
 

@@ -14,7 +14,8 @@ On a card (`gpu` marker, `pytest -m gpu`): the kernel's candidate against
 `window.retract`, its cost against `window.robust_cost`, its decision
 against the plain version's, its determinism, an 8-iteration `lm_solve`
 that takes the same decisions either way, and the solve's launches and host
-synchronisations. No JAX here: the card's machine has none (run with
+synchronisations; the same for the instance that estimates the time offset
+(`lm_cost_fused_td`). No JAX here: the card's machine has none (run with
 `--noconftest`)."""
 
 import re
@@ -128,8 +129,11 @@ def test_input_table_is_in_the_order_of_the_source(kernel):
     table = re.search(r"\*\*\s*in\[\]\s*=\s*\{(.*?)\};", body, re.S).group(1)
     names = re.findall(r"&a\.(\w+)", table)
     shapes = (hk.normal_eq_inputs if kernel == "normal_eq_fused"
-              else hk.lm_cost_inputs)(11, 128)
-    assert names + ["anchor"] == list(shapes)
+              else hk.lm_cost_inputs)
+    # the time offset's instance reads two inputs more, last in `in[]`
+    assert names[-2:] == ["vel", "td_obs"]
+    assert names[:-2] + ["anchor"] == list(shapes(11, 128))
+    assert names + ["anchor"] == list(shapes(11, 128, td=True))
     if kernel == "lm_cost_fused":
         after = body[body.index("a.anchor ="):]
         read = re.findall(r"a\.(\w+) = (?:static_cast|ptr)", after)
@@ -194,14 +198,16 @@ def _needs_card():
 
 
 def _launch(cfg, st, ms, mode, step=(), diagnostics=False):
-    shapes = hk.normal_eq_inputs(cfg.nf, cfg.max_feats)
+    shapes = hk.normal_eq_inputs(cfg.nf, cfg.max_feats, cfg.estimate_td)
     fixed = win._kernel_fixed_inputs(st, ms, cfg, _anchor_ref(st), shapes)
     leaves = {k: getattr(st, k).contiguous() for k in LEAVES}
+    td_consts = (cfg.tr_over_row, cfg.row_fy, cfg.row_c0) \
+        if cfg.estimate_td else None
     return hk.lm_cost_fused(
         {**fixed, **leaves}, mode, cfg.cauchy_scale ** 2,
         cfg.anchor_weight ** 0.5, cfg.min_inv_depth,
         cfg.lm_strategy == "nielsen", cfg.lm_lambda_up, cfg.lm_lambda_down,
-        tuple(x.contiguous() for x in step), diagnostics)
+        tuple(x.contiguous() for x in step), diagnostics, td_consts)
 
 
 def _f64(x):
@@ -227,18 +233,10 @@ def _cost_close(cfg, x, ms, ref, got, where=None):
     return ek <= F32_FACTOR * ep + F64_RTOL, (ek, ep)
 
 
-@pytest.mark.gpu
-@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
-@pytest.mark.parametrize("B", [1, 64])
-@pytest.mark.parametrize("variant", sorted(VARIANTS))
-def test_candidate_and_cost_match_the_plain_version(variant, B, dtype):
-    """Retract mode: the candidate equals `window.retract`'s of the
-    sanitized step bit for bit, its cost `robust_cost`'s at it, and `ok`
-    says whether the step was finite (scenario 1's is not). Evaluate mode:
-    the cost and the diagnostics at the state as given."""
-    _needs_card()
-    cfg = FLAGSHIP
-    st, ms = _problem(cfg, B, device="cuda", dtype=dtype, **VARIANTS[variant])
+def _candidate_and_cost(cfg, B, dtype, **kw):
+    """Retract and evaluate launches of the instance `cfg` takes against the
+    plain version (`test_candidate_and_cost_match_the_plain_version`)."""
+    st, ms = _problem(cfg, B, device="cuda", dtype=dtype, **kw)
     ref = _anchor_ref(st)
     dx, d_rho, pred, _, _ = _step(cfg, st, ms)
     hk.reset_launch_counts()
@@ -251,13 +249,47 @@ def test_candidate_and_cost_match_the_plain_version(variant, B, dtype):
     assert ok, err
     assert out["ok"].tolist() == [b != 1 for b in range(B)]
     ev = _launch(cfg, st, ms, "evaluate", diagnostics=True)
-    assert hk.launch_counts["lm_cost_fused"] == 2
+    name = "lm_cost_fused_td" if cfg.estimate_td else "lm_cost_fused"
+    assert hk.launch_counts[name] == 2 and sum(hk.launch_counts.values()) == 2
+    return st, ms, ref, ev
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+@pytest.mark.parametrize("B", [1, 64])
+@pytest.mark.parametrize("variant", sorted(VARIANTS))
+def test_candidate_and_cost_match_the_plain_version(variant, B, dtype):
+    """Retract mode: the candidate equals `window.retract`'s of the
+    sanitized step bit for bit, its cost `robust_cost`'s at it, and `ok`
+    says whether the step was finite (scenario 1's is not). Evaluate mode:
+    the cost and the diagnostics at the state as given."""
+    _needs_card()
+    cfg = FLAGSHIP
+    st, ms, ref, ev = _candidate_and_cost(cfg, B, dtype, **VARIANTS[variant])
     ok, err = _cost_close(cfg, st, ms, ref, ev["cost"])
     assert ok, err
     rtol = F64_RTOL if dtype == torch.float64 else 1e-5
     for name, plain in (("imu_chi2", win.imu_chi2_mean(st, ms, cfg)),
                         ("prior_chi2", win.prior_chi2(st, ms, cfg))):
         assert torch.allclose(ev[name], plain, rtol=rtol, atol=0), name
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+@pytest.mark.parametrize("B", [1, 64])
+@pytest.mark.parametrize("tr_over_row", [0.0, 0.033 / 480])
+def test_td_candidate_and_cost_match_the_plain_version(tr_over_row, B,
+                                                        dtype):
+    """The time offset's instance (`lm_cost_fused_td`): as
+    `test_candidate_and_cost_match_the_plain_version`, with td estimated,
+    image velocities, td at the frames' capture, and a global (TR = 0) or a
+    rolling shutter (33 ms over 480 rows): the candidate's td bit for bit,
+    its cost against `robust_cost`'s shifted observations."""
+    _needs_card()
+    cfg = FLAGSHIP._replace(estimate_td=True, tr_over_row=tr_over_row)
+    st, ms, ref, ev = _candidate_and_cost(cfg, B, dtype, td=True)
+    ok, err = _cost_close(cfg, st, ms, ref, ev["cost"])
+    assert ok, err
 
 
 @pytest.mark.gpu
@@ -311,8 +343,27 @@ def test_lm_solve_takes_the_same_decisions_as_the_plain_version(
     same bits. The solve launches the cost kernel 8 + 2 times and makes no
     host synchronisation (torch's sync check set to raise)."""
     _needs_card()
-    cfg = FLAGSHIP._replace(fused_schur=dtype == torch.float32)
-    st, ms = _problem(cfg, 64, device="cuda", dtype=dtype, prior_weight=0.0)
+    _same_decisions(monkeypatch, FLAGSHIP, dtype)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+def test_lm_solve_with_td_takes_the_plain_routes_decisions(monkeypatch,
+                                                           dtype):
+    """As `test_lm_solve_takes_the_same_decisions_as_the_plain_version`,
+    with td estimated under a rolling shutter (33 ms over 480 rows): both td
+    instances, 8 + 2 launches of the cost's and 8 of the normal
+    equations', against the td normal equations with the plain cost phase:
+    the same decisions and the same bits at the end."""
+    _needs_card()
+    _same_decisions(monkeypatch, FLAGSHIP._replace(
+        estimate_td=True, tr_over_row=0.033 / 480), dtype, td=True)
+
+
+def _same_decisions(monkeypatch, cfg, dtype, **kw):
+    cfg = cfg._replace(fused_schur=dtype == torch.float32)
+    st, ms = _problem(cfg, 64, device="cuda", dtype=dtype, prior_weight=0.0,
+                      **kw)
     real = win._lm_route
     oks = []
 
@@ -332,8 +383,12 @@ def test_lm_solve_takes_the_same_decisions_as_the_plain_version(
         out_k, diag_k = win.lm_solve(st, ms, cfg)
     finally:
         torch.cuda.set_sync_debug_mode("default")
-    assert hk.launch_counts["lm_cost_fused"] == cfg.iters + 2
-    assert hk.launch_counts["normal_eq_fused"] == cfg.iters
+    sfx = "_td" if cfg.estimate_td else ""
+    assert hk.launch_counts["lm_cost_fused" + sfx] == cfg.iters + 2
+    assert hk.launch_counts["normal_eq_fused" + sfx] == cfg.iters
+    assert sum(hk.launch_counts[k] for k in (
+        "lm_cost_fused", "lm_cost_fused_td", "normal_eq_fused",
+        "normal_eq_fused_td")) == 2 * cfg.iters + 2
 
     def plain_cost(state, meas, c, anchor_ref):
         route = real(state, meas, c, anchor_ref)

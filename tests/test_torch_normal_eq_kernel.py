@@ -7,15 +7,17 @@ On the CPU: `normal_equations_fast` and the route are the plain version and
 launch nothing; the prior, gauge anchor and ZUPT rows whose JᵀJ the route
 gives the kernel once per solve are the plain version's small rows without
 the IMU group, and do not depend on the state; `lm_solve` asks the route
-once a solve, which sends td estimation to the dense rows of `linearize`
-and everything else to the plain version. (The JAX parity of the plain
-version is `tests/test_torch_window.py`; the launcher's refusal of CPU
-tensors is `tests/test_torch_kernels.py`'s.)
+once a solve, which sends CPU tensors to the plain version, td estimation
+included (its td column equals the dense rows of `linearize`). (The JAX
+parity of the plain version is `tests/test_torch_window.py`; the
+launcher's refusal of CPU tensors is `tests/test_torch_kernels.py`'s.)
 
 On a card (`gpu` marker, `pytest -m gpu`): the kernel against the plain
 version on the same card, its determinism, its launch count, and an
-8-iteration `lm_solve` that takes the same steps either way. No JAX here:
-the card's machine has none (run with `--noconftest`)."""
+8-iteration `lm_solve` that takes the same steps either way; the same for
+the instance that estimates the time offset (`normal_eq_fused_td`, with and
+without the rolling shutter's row shift). No JAX here: the card's machine
+has none (run with `--noconftest`)."""
 
 import pytest
 import torch
@@ -75,16 +77,18 @@ def test_fixed_rows_are_the_small_rows_without_the_imu_group(zupt):
 @pytest.mark.parametrize("estimate_td", [False, True])
 def test_lm_solve_routes_td_estimation_to_the_dense_rows(monkeypatch,
                                                          estimate_td):
-    """The route's function is the dense rows' normal equations with td
-    estimation and the plain version's without, bit for bit; `lm_solve`
+    """Since the kernels carry the time offset's column, td estimation no
+    longer takes the dense rows: on CPU tensors the route's function is the
+    plain version's with and without td estimation, bit for bit, and
+    `linearize` is never called (on CUDA tensors the kernels' td instances,
+    `test_td_kernel_matches_the_plain_version_on_the_card`); `lm_solve`
     asks the route once a solve and calls what it gives once an iteration;
     on CPU tensors the kernel's inputs are never made."""
-    cfg = SMALL._replace(iters=2, estimate_td=estimate_td)
-    st, ms = _problem(cfg, 1)
+    cfg = SMALL._replace(iters=2, estimate_td=estimate_td,
+                         tr_over_row=0.033 / 480 if estimate_td else 0.0)
+    st, ms = _problem(cfg, 1, td=estimate_td)
     ref = _anchor_ref(st)
-    want = (win.build_normal_equations(*win.linearize(st, ms, cfg, ref)[:5],
-                                       cfg) if estimate_td else
-            win.normal_equations_fast_plain(st, ms, cfg, ref))
+    want = win.normal_equations_fast_plain(st, ms, cfg, ref)
     got = win._lm_route(st, ms, cfg, ref).normal_equations(st)
     assert all(torch.equal(a, b) for a, b in zip(got, want))
     calls = {"route": 0, "normal_equations_fast_plain": 0, "linearize": 0,
@@ -101,10 +105,32 @@ def test_lm_solve_routes_td_estimation_to_the_dense_rows(monkeypatch,
         monkeypatch.setattr(win, name, count(name, getattr(win, name)))
     out, diag = win.lm_solve(st, ms, cfg, device="cpu")
     assert torch.isfinite(diag["cost"]).all()
-    assert calls == {"route": 1, "normal_equations_fast_plain":
-                     0 if estimate_td else 2,
-                     "linearize": 2 if estimate_td else 0,
-                     "_kernel_fixed_inputs": 0}
+    assert calls == {"route": 1, "normal_equations_fast_plain": 2,
+                     "linearize": 0, "_kernel_fixed_inputs": 0}
+
+
+@pytest.mark.parametrize("tr_over_row", [0.0, 0.033 / 480])
+@pytest.mark.parametrize("variant", ["prior", "no_prior_no_feat_w"])
+def test_plain_version_with_td_equals_the_dense_rows(tr_over_row, variant):
+    """The plain version's td column and the rolling shutter's row shift,
+    float64: every output of `normal_equations_fast_plain` with
+    `estimate_td` within 1e-12 of its largest entry of `linearize` +
+    `build_normal_equations` (the same factors, summed blockwise instead of
+    through dense rows), td's column not zero."""
+    cfg = SMALL._replace(estimate_td=True, tr_over_row=tr_over_row)
+    kw = dict(prior_weight=0.0, feat_w=False) if variant != "prior" else {}
+    st, ms = _problem(cfg, 2, td=True, **kw)
+    st = st._replace(td=st.td + 0.004)
+    ref = _anchor_ref(st)
+    got = win.normal_equations_fast_plain(st, ms, cfg, ref)
+    want = win.build_normal_equations(*win.linearize(st, ms, cfg, ref)[:5],
+                                      cfg)
+    for name, a, b in zip(NAMES, got, want):
+        scale = float(b.abs().max())
+        assert float((a - b).abs().max()) <= 1e-12 * scale, name
+    T = 15 * cfg.nf + 6
+    assert got[0][..., T, :6 * cfg.nf].abs().max() > 0
+    assert got[2][..., T].abs().max() > 0
 
 
 # ----------------------------------------------------------------------------
@@ -186,6 +212,44 @@ def test_kernel_is_deterministic_and_takes_fixed_inputs(dtype):
     for again in (route(st), route(st),
                   win.normal_equations_fast(st, ms, FLAGSHIP)):
         assert all(torch.equal(a, b) for a, b in zip(first, again))
+
+
+# the time offset's instance at a global (TR = 0) and a rolling shutter
+# (33 ms over 480 rows)
+TD_SHUTTERS = {"global": 0.0, "rolling": 0.033 / 480}
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("B", [1, 64])
+@pytest.mark.parametrize("shutter", sorted(TD_SHUTTERS))
+def test_td_kernel_matches_the_plain_version_on_the_card(shutter, B):
+    """`normal_eq_fused_td` against the plain version's td column, at the
+    tolerances of `test_kernel_matches_the_plain_version_on_the_card`, with
+    td estimated (td ≠ td at the frames' capture), image velocities and the
+    shutter's row shift; the td column of H and of H_lp not zero."""
+    _needs_card()
+    cfg = FLAGSHIP._replace(estimate_td=True, tr_over_row=TD_SHUTTERS[shutter])
+    st, ms = _problem(cfg, B, device="cuda", td=True)
+    st = st._replace(td=st.td + 0.004)
+    ref64 = win.normal_equations_fast_plain(st, ms, cfg)
+    hk.reset_launch_counts()
+    got64 = win.normal_equations_fast(st, ms, cfg)
+    f32 = lambda x: x.float() if x.is_floating_point() else x
+    st32, ms32 = tree_map(f32, st), tree_map(f32, ms)
+    got32 = win.normal_equations_fast(st32, ms32, cfg)
+    ref32 = win.normal_equations_fast_plain(st32, ms32, cfg)
+    assert hk.launch_counts["normal_eq_fused_td"] == 2
+    assert hk.launch_counts["normal_eq_fused"] == 0
+    eps = torch.finfo(torch.float32).eps
+    for name, r64, k64, r32, k32 in zip(NAMES, ref64, got64, ref32, got32):
+        scale = float(r64.abs().max())
+        assert torch.isfinite(k64).all() and torch.isfinite(k32).all()
+        assert _max_err(k64, r64) <= 1e-10 * scale, (name, _max_err(k64, r64))
+        assert _max_err(k32, r64) <= F32_FACTOR * _max_err(r32, r64) \
+            + 8 * eps * scale, (name, _max_err(k32, r64), _max_err(r32, r64))
+    T = 15 * cfg.nf + 6
+    assert got64[0][..., T, :6 * cfg.nf].abs().max() > 0
+    assert got64[2][..., T].abs().max() > 0
 
 
 @pytest.mark.gpu
