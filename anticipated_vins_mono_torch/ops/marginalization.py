@@ -4,8 +4,12 @@ Counterpart of `anticipated_vins_mono_tpu/ops/marginalization.py`:
 
 - re-linearize every factor touching the drop set (prior, IMU 0→1, all
   projection factors anchored at the oldest frame);
-- assemble the dense H = JᵀJ, b = Jᵀr over (window tangent ⊕ dropped
-  landmarks) from the solver's own batched `linearize`;
+- assemble H = JᵀJ, b = Jᵀr over (window tangent ⊕ dropped landmarks) by
+  the solver's own route: on CUDA tensors from one launch of the normal
+  equations' kernel (`window.normal_equations_fast`), whose H, g, H_lp,
+  h_ll, g_l are the system's blocks; on CPU tensors, and with a
+  relocalization frame (the kernel has no rows for it), from the dense
+  rows of `linearize`;
 - Schur-eliminate the drop set, expressed as a mask over the fixed [D+F]
   tangent, via an eigendecomposition pseudo-inverse (eps = 1e-8);
 - factor the kept information into (J0, r0) via the eigenvalue square root;
@@ -32,7 +36,7 @@ import torch
 
 from anticipated_vins_mono_torch.ops.window import (
     PriorFactor, WindowConfig, WindowMeasurements, WindowState, linearize,
-    state_boxminus)
+    normal_equations_fast, state_boxminus)
 
 Tensor = torch.Tensor
 
@@ -43,7 +47,30 @@ def _augmented_system(state: WindowState, meas: WindowMeasurements,
                       cfg: WindowConfig, anchor_ref):
     """H, b over the augmented tangent [D + F] (window ⊕ inverse depths),
     built from the factors in `meas` (caller pre-masks to the drop-touching
-    subset) via the solver's own batched linearization."""
+    subset): from the normal equations' kernel on CUDA tensors, from
+    `linearize`'s dense rows on CPU tensors or with a relocalization
+    frame."""
+    if state.p.is_cuda and meas.relo_pts is None:
+        return _assemble_augmented(
+            *normal_equations_fast(state, meas, cfg, anchor_ref))
+    return _linearized_augmented_system(state, meas, cfg, anchor_ref)
+
+
+def _assemble_augmented(H, g, H_lp, h_ll, g_l):
+    """The [D + F] system from the normal equations' blocks: each landmark's
+    column touches only its own factors, so H_aug = [[H, H_lpᵀ],
+    [H_lp, diag(h_ll)]] and b = [g; g_l]."""
+    top = torch.cat([H, H_lp.mT], dim=-1)
+    bottom = torch.cat([H_lp, torch.diag_embed(h_ll)], dim=-1)
+    return torch.cat([top, bottom], dim=-2), torch.cat([g, g_l], dim=-1)
+
+
+def _linearized_augmented_system(state: WindowState,
+                                 meas: WindowMeasurements, cfg: WindowConfig,
+                                 anchor_ref):
+    """`_augmented_system` as J_augᵀJ_aug, J_augᵀr of the dense rows of the
+    solver's batched `linearize`, each projection row augmented with its
+    landmark's column."""
     d, f, nf = cfg.dim, cfg.max_feats, cfg.nf
     r_all, J_all, _, p_rows, p_rho, _ = linearize(state, meas, cfg, anchor_ref)
     # augment projection rows with their landmark column (block-diagonal in l)
@@ -135,6 +162,18 @@ def _shifted_prior(J0: Tensor, r0: Tensor, state: WindowState,
                        weight=weight)
 
 
+def _drop_touching(meas: WindowMeasurements, cfg: WindowConfig,
+                   dtype) -> WindowMeasurements:
+    """`meas` restricted to the factors that touch MARGIN_OLD's drop set:
+    the landmarks anchored at frame 0 and the IMU pair 0→1 (the prior
+    stays whole); the masks' products in `dtype`, the state's."""
+    anchored0 = (meas.anchor == 0).to(dtype) * meas.feat_valid
+    first_pair = (torch.arange(cfg.window, device=meas.feat_valid.device)
+                  == 0).to(dtype)
+    return meas._replace(feat_valid=anchored0,
+                         pre_valid=meas.pre_valid * first_pair)
+
+
 def marginalize_oldest(state: WindowState, meas: WindowMeasurements,
                        cfg: WindowConfig) -> PriorFactor:
     """MARGIN_OLD: absorb frame 0 (pose+speedbias), its IMU factor, all
@@ -143,13 +182,11 @@ def marginalize_oldest(state: WindowState, meas: WindowMeasurements,
     d, f, nf = cfg.dim, cfg.max_feats, cfg.nf
     dtype, dev = state.p.dtype, state.p.device
     with torch.no_grad():
-        # restrict factors to the drop-touching subset
-        anchored0 = (meas.anchor == 0).to(dtype) * meas.feat_valid
-        first_pair = (torch.arange(cfg.window, device=dev) == 0).to(dtype)
-        meas_m = meas._replace(feat_valid=anchored0,
-                               pre_valid=meas.pre_valid * first_pair)
-        # gauge anchor rows participate via linearize (they touch pose 0 only
-        # when no prior exists — exactly when their info must seed the prior)
+        meas_m = _drop_touching(meas, cfg, dtype)
+        anchored0 = meas_m.feat_valid
+        # gauge anchor rows participate in the system (they touch pose 0
+        # only when no prior exists — exactly when their info must seed the
+        # prior)
         anchor_ref = (state.p[0], state.q[0])
         H, b = _augmented_system(state, meas_m, cfg, anchor_ref)
 

@@ -1322,11 +1322,12 @@ def check_vio_counts(tag, run, per_frame):
     """Exact launches: `per_frame` of the selector's and solver's kernels,
     the preintegration kernel once a frame (the measurements) and once more
     a keyframe (`_margin_old`'s), the normal equations' kernel once an LM
-    iteration and the cost phase's once an iteration and twice a solve
-    (both types)."""
+    iteration and once more a keyframe (`_margin_old`'s augmented system)
+    and the cost phase's once an iteration and twice a solve (both
+    types)."""
     want = {name: n * run["frames"] for name, n in per_frame.items()}
     want["preint_scan"] = run["frames"] + run["keyframes"]
-    want["normal_eq_fused"] = run["iters"] * run["frames"]
+    want["normal_eq_fused"] = run["iters"] * run["frames"] + run["keyframes"]
     want["lm_cost_fused"] = (run["iters"] + 2) * run["frames"]
     want["normal_eq_fused_td"] = want["lm_cost_fused_td"] = 0
     if run["counts"] != want:

@@ -23,6 +23,8 @@ from anticipated_vins_mono_tpu.utils import synthetic as jsyn
 from anticipated_vins_mono_torch.ops import marginalization as tmg
 from anticipated_vins_mono_torch.ops import window as tw
 from anticipated_vins_mono_torch.utils import convert
+from anticipated_vins_mono_torch.utils.synthetic import window_batch
+from anticipated_vins_mono_torch.utils.tree import tree_map
 
 torch.set_num_threads(1)
 
@@ -188,3 +190,103 @@ def test_marginalize_leaves_its_inputs_unchanged(solved):
     for a, b in zip(jax.tree_util.tree_leaves(before),
                     jax.tree_util.tree_leaves(after)):
         np.testing.assert_array_equal(a, b)
+
+
+# ----------------------------------------------------------------------------
+# The augmented system from the normal equations' blocks (the card's route)
+# ----------------------------------------------------------------------------
+
+# the deployment's window: D = 178, F = 128
+FLAGSHIP = tw.WindowConfig(window=10, max_feats=128)
+# as `tests/test_torch_normal_eq_kernel.py`: a float32 result's distance to
+# the float64 dense rows at most this many times the float32 dense rows',
+# plus 8 ulps of the output's size
+F32_FACTOR = 4
+
+
+def _flagship_drop_set(dtype, estimate_td):
+    """The deployment's window (`window_batch`'s scenario 0: a dense prior,
+    ZUPT, a roll/pitch pin, feature weights; with td the image velocities
+    and td away from the frames' capture), restricted to MARGIN_OLD's drop
+    set as `marginalize_oldest` restricts it."""
+    cfg = FLAGSHIP._replace(estimate_td=estimate_td,
+                            tr_over_row=0.033 / 480 if estimate_td else 0.0)
+    st, ms = window_batch(cfg, 1, seed=5, td=estimate_td, dtype=dtype,
+                          device="cpu")
+    st, ms = tree_map(lambda x: x[0], (st, ms))
+    if estimate_td:
+        st = st._replace(td=st.td + 0.004)
+    return cfg, st, tmg._drop_touching(ms, cfg, dtype)
+
+
+@pytest.mark.parametrize("estimate_td", [False, True])
+@pytest.mark.parametrize("dtype", [torch.float64, torch.float32])
+def test_blocks_assemble_the_linearized_augmented_system(dtype, estimate_td):
+    """`_assemble_augmented` of the plain normal equations (the kernel's
+    plain version) equals `linearize`'s J_augᵀJ_aug, J_augᵀr on the drop
+    set at D = 178, F = 128: float64 within 1e-9 of each output's largest
+    entry, float32 as `F32_FACTOR` says; the landmark block exactly
+    diagonal in both."""
+    cfg, st, ms = _flagship_drop_set(dtype, estimate_td)
+    ref = (st.p[0], st.q[0])
+    got = tmg._assemble_augmented(
+        *tw.normal_equations_fast_plain(st, ms, cfg, ref))
+    want = tmg._linearized_augmented_system(st, ms, cfg, ref)
+    D, F = cfg.dim, cfg.max_feats
+    assert got[0].shape == (D + F, D + F) and got[1].shape == (D + F,)
+    assert got[0].dtype == want[0].dtype == dtype
+    dropped = ms.feat_valid > 0
+    assert 0 < int(dropped.sum()) < F
+    for H in (got[0], want[0]):
+        H_ll = H[D:, D:]
+        assert torch.equal(H_ll, torch.diag_embed(torch.diagonal(H_ll)))
+        assert (torch.diagonal(H_ll)[dropped] > 0).all()
+        assert not torch.diagonal(H_ll)[~dropped].any()
+    if dtype == torch.float64:
+        for name, a, b in zip(("H", "b"), got, want):
+            scale = float(b.abs().max())
+            assert float((a - b).abs().max()) <= 1e-9 * scale, name
+        return
+    cfg64, st64, ms64 = _flagship_drop_set(torch.float64, estimate_td)
+    want64 = tmg._linearized_augmented_system(st64, ms64, cfg64,
+                                              (st64.p[0], st64.q[0]))
+    err = lambda a, b: float((a.double() - b).abs().max())
+    eps = torch.finfo(torch.float32).eps
+    for name, a, b, w in zip(("H", "b"), got, want, want64):
+        scale = float(w.abs().max())
+        assert err(a, w) <= F32_FACTOR * err(b, w) + 8 * eps * scale, \
+            (name, err(a, w), err(b, w))
+
+
+@pytest.mark.parametrize("relo", [False, True])
+def test_cpu_tensors_and_relo_windows_keep_the_linearized_system(
+        monkeypatch, solved, relo):
+    """On CPU tensors `_augmented_system` never asks for the normal
+    equations' blocks: without a relocalization frame it is `linearize`'s
+    assembly bit for bit, and `marginalize_oldest` runs through it; a window
+    with a relocalization frame (which the kernel has no rows for) is
+    handed to that assembly whole."""
+    _, _, st, ms = solved
+
+    def blocks(*a, **kw):
+        raise AssertionError("the normal equations' blocks asked for")
+
+    monkeypatch.setattr(tmg, "normal_equations_fast", blocks)
+    ref = (st.p[0], st.q[0])
+    if not relo:
+        want = tmg._linearized_augmented_system(st, ms, TCFG, ref)
+        got = tmg._augmented_system(st, ms, TCFG, ref)
+        assert all(torch.equal(a, b) for a, b in zip(got, want))
+        prior = tmg.marginalize_oldest(st, ms, TCFG)
+        assert torch.isfinite(prior.J0).all() and prior.J0.abs().max() > 0
+        return
+    rng = np.random.default_rng(7)
+    pts = ms.pts[:, 0].clone()
+    pts[:, :2] += torch.from_numpy(rng.normal(size=(TCFG.max_feats, 2))) * 1e-3
+    ms = ms._replace(relo_pts=pts, relo_valid=ms.mask[:, 0] * ms.feat_valid)
+    st = st._replace(relo_p=st.p[0] + 0.02, relo_q=st.q[0].clone())
+    handed = []
+    monkeypatch.setattr(tmg, "_linearized_augmented_system",
+                        lambda *a: handed.append(a) or "dense")
+    assert tmg._augmented_system(st, ms, TCFG, ref) == "dense"
+    assert len(handed) == 1 and handed[0][1] is ms
